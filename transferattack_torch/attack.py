@@ -1,0 +1,226 @@
+"""Attack engine (counterpart of ``transferattack_tpu/attack.py``).
+
+The JAX engine is a pure function whose loop is one jit-compiled
+``lax.scan``; here the same hooks run eagerly in a Python loop over
+``epoch``.  The state is a dataclass of tensors, the JAX PRNG key chain is a
+``torch.Generator`` created in ``__call__`` from ``seed + idx``, and the
+surrogate's weights live in its ``nn.Module``, so the hooks take no
+``variables`` argument.
+
+Public tensors keep the JAX layout: ``(B, H, W, C)`` float in [0, 1].
+Delta, momentum and x stay contiguous NHWC fp32, which is what the update
+kernel reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+
+from .models import resolve_device, resolve_model
+from .ops.fused_update import fused_sign_update
+from .utils import img_max, img_min
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class AttackState:
+    """Loop state; ``extra`` holds per-attack auxiliary tensors."""
+
+    delta: Tensor
+    momentum: Tensor
+    step: int = 0
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def l1_normalize(g: Tensor) -> Tensor:
+    """Normalize by the mean absolute value over all non-batch axes."""
+    denom = g.abs().mean(dim=tuple(range(1, g.ndim)), keepdim=True)
+    return g / (denom + 1e-12)
+
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Per-example CE. ``logits``: (..., B, C); ``labels``: (B,) int."""
+    logp = F.log_softmax(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+    return -(logp * onehot).sum(dim=-1)
+
+
+class Attack:
+    """Base class for transfer attacks.
+
+    Defaults follow the reference protocol (eps=16/255, alpha=1.6/255,
+    epoch=10, untargeted).  ``compute_dtype='bfloat16'`` runs the surrogate
+    in bf16, BN buffers included, while delta, momentum and the loss stay
+    fp32; ``None`` is full fp32.  ``device`` defaults to ``'cuda'`` and
+    raises when no card is present.
+    """
+
+    def __init__(
+        self,
+        model_name: Union[str, Sequence[str], Any] = "resnet50",
+        epoch: int = 10,
+        eps: float = 16 / 255,
+        alpha: float = 1.6 / 255,
+        decay: float = 1.0,
+        targeted: bool = False,
+        random_start: bool = False,
+        norm: str = "linfty",
+        loss: str = "crossentropy",
+        seed: int = 0,
+        attack: str = "Attack",
+        compute_dtype=None,
+        device="cuda",
+        **model_kwargs,
+    ):
+        if norm not in ("linfty", "l2"):
+            raise ValueError(f"Unsupported norm {norm}")
+        self.attack = attack
+        self.device = resolve_device(device)
+        if isinstance(compute_dtype, str):
+            compute_dtype = getattr(torch, compute_dtype)
+        self.compute_dtype = compute_dtype
+        self.model = resolve_model(model_name, device=self.device, **model_kwargs)
+        self.model.module.eval().requires_grad_(False)
+        if self.compute_dtype is not None:
+            self.model.module.to(self.compute_dtype)
+            self.model.compute_dtype = self.compute_dtype
+        self.epoch = int(epoch)
+        self.eps = float(eps)
+        self.alpha = float(alpha)
+        self.decay = float(decay)
+        self.targeted = bool(targeted)
+        self.random_start = bool(random_start)
+        self.norm = norm
+        self.loss_name = loss
+        self.seed = int(seed)
+
+    # ------------------------------------------------------------------
+    # hooks — override in subclasses
+    # ------------------------------------------------------------------
+
+    def init_delta(self, x: Tensor, gen: torch.Generator) -> Tensor:
+        """Zero or random-start init."""
+        if not self.random_start:
+            return torch.zeros_like(x)
+        if self.norm == "linfty":
+            delta = (torch.rand(x.shape, generator=gen, device=x.device)
+                     * (2 * self.eps) - self.eps)
+        else:
+            delta = torch.randn(x.shape, generator=gen, device=x.device)
+            flat = delta.reshape(x.shape[0], -1)
+            n = flat.norm(dim=1, keepdim=True)
+            r = torch.rand((x.shape[0], 1), generator=gen, device=x.device)
+            delta = (flat / (n + 1e-12) * r * self.eps).reshape(x.shape)
+        return torch.clamp(x + delta, img_min, img_max) - x
+
+    def init_extra(self, x: Tensor, y: Tensor) -> Dict[str, Any]:
+        """Initial per-attack auxiliary state (empty by default)."""
+        return {}
+
+    def num_copies(self) -> int:
+        """Number of augmented copies ``transform`` produces."""
+        return 1
+
+    def transform(self, x: Tensor, state: AttackState, gen: torch.Generator) -> Tensor:
+        """Input augmentation: (B, H, W, C) → (num_copies, B, H, W, C)."""
+        return x[None]
+
+    def get_logits(self, xs: Tensor) -> Tensor:
+        """``xs``: (n, B, H, W, C) → fp32 logits (n, B, num_classes)."""
+        n, b = xs.shape[0], xs.shape[1]
+        logits = self.model.apply(xs.reshape((n * b,) + xs.shape[2:])).float()
+        return logits.reshape((n, b) + logits.shape[1:])
+
+    def get_loss(self, logits: Tensor, y: Tensor) -> Tensor:
+        """Scalar loss, negated for targeted attacks."""
+        ce = softmax_cross_entropy(logits, y).mean()
+        return -ce if self.targeted else ce
+
+    def get_grad(self, x: Tensor, y: Tensor, state: AttackState,
+                 gen: torch.Generator):
+        """Gradient of the loss w.r.t. delta; returns ``(grad, extra_updates)``."""
+        return self.input_grad(x + state.delta, y, state, gen), {}
+
+    def input_grad(self, point: Tensor, y: Tensor, state: AttackState,
+                   gen: torch.Generator) -> Tensor:
+        """Gradient of the loss w.r.t. an input point.  Delta enters
+        additively, so this is also the gradient w.r.t. delta at
+        ``point = x + delta``.  The surrogate's parameters are frozen, so
+        the backward computes the input gradient only."""
+        point = point.detach().requires_grad_(True)
+        loss = self.get_loss(self.get_logits(self.transform(point, state, gen)), y)
+        (grad,) = torch.autograd.grad(loss, point)
+        return grad
+
+    def post_grad(self, grad: Tensor, state: AttackState) -> Tensor:
+        """Gradient post-processing hook."""
+        return grad
+
+    def get_momentum(self, grad: Tensor, momentum: Tensor) -> Tensor:
+        """L1-mean-normalized accumulation."""
+        return momentum * self.decay + l1_normalize(grad)
+
+    def update_delta(self, delta: Tensor, x: Tensor, grad_dir: Tensor) -> Tensor:
+        """Step + project."""
+        if self.norm == "linfty":
+            return fused_sign_update(delta, grad_dir.contiguous(), x, self.alpha,
+                                     self.eps, img_min, img_max)
+        # per-sample L2-normalized step, then eps-ball renorm projection
+        shape = (-1,) + (1,) * (grad_dir.ndim - 1)
+        gn = grad_dir.reshape(grad_dir.shape[0], -1).norm(dim=1).reshape(shape)
+        d = delta + self.alpha * grad_dir / (gn + 1e-20)
+        n = d.reshape(d.shape[0], -1).norm(dim=1).reshape(shape)
+        delta = d * torch.clamp(self.eps / (n + 1e-12), max=1.0)
+        return torch.clamp(x + delta, img_min, img_max) - x
+
+    def step(self, x: Tensor, y: Tensor, state: AttackState,
+             gen: torch.Generator) -> AttackState:
+        """One attack iteration."""
+        grad, extra_up = self.get_grad(x, y, state, gen)
+        grad = self.post_grad(grad, state)
+        momentum = self.get_momentum(grad, state.momentum)
+        delta = self.update_delta(state.delta, x, momentum)
+        return AttackState(delta=delta, momentum=momentum, step=state.step + 1,
+                           extra={**state.extra, **extra_up})
+
+    # ------------------------------------------------------------------
+    # driver
+    # ------------------------------------------------------------------
+
+    def init_state(self, x: Tensor, y: Tensor, gen: torch.Generator) -> AttackState:
+        return AttackState(delta=self.init_delta(x, gen),
+                           momentum=torch.zeros_like(x),
+                           extra=self.init_extra(x, y))
+
+    def run(self, x: Tensor, y: Tensor, gen: torch.Generator) -> Tensor:
+        """The full attack: ``epoch`` steps, then the final projection."""
+        state = self.init_state(x, y, gen)
+        for _ in range(self.epoch):
+            state = self.step(x, y, state, gen)
+        return self.finalize(state, x, y)
+
+    def finalize(self, state: AttackState, x: Tensor, y: Tensor) -> Tensor:
+        """Final projection; returns delta."""
+        return torch.clamp(x + state.delta, img_min, img_max) - x
+
+    def __call__(self, data, label, generator: Optional[torch.Generator] = None,
+                 idx: int = 0) -> Tensor:
+        """``data``: (B, H, W, C) float in [0, 1] (array or tensor).  Returns
+        delta as a tensor on the attack's device."""
+        x = torch.as_tensor(data, dtype=torch.float32, device=self.device).contiguous()
+        y = self.prepare_labels(label)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.seed + idx)
+        return self.run(x, y, generator)
+
+    def prepare_labels(self, label) -> Tensor:
+        """Targeted batches carry (ground-truth, target) pairs; attack the
+        target column."""
+        y = torch.as_tensor(label, device=self.device).long()
+        if self.targeted and y.ndim == 2:
+            y = y[:, 1]
+        return y

@@ -1,0 +1,198 @@
+"""Surrogate-model zoo (counterpart of ``transferattack_tpu/models/__init__.py``).
+
+Every surrogate is an ``nn.Module`` wrapped with its preprocessing (resize +
+normalize), so attacks work in raw ``[0, 1]`` pixel space.  The public layout
+is the JAX package's: ``(B, H, W, C)``.  Inside, the backbone takes
+``x.permute(0, 3, 1, 2)`` of the contiguous NHWC tensor, which is an NCHW
+tensor with ``channels_last`` strides, so cuDNN gets its preferred layout
+without a copy.
+
+Weights: ``$TA_TPU_WEIGHTS_DIR/<name>.npz`` in the JAX package's flat layout,
+loaded through :mod:`transferattack_torch.utils.bridge`; absent that, a
+seeded random init, recorded by :func:`record_fallback`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.bridge import load_flat_variables
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# name -> (builder() -> nn.Module, input_size, mean, std)
+_MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int, tuple, tuple]] = {}
+# models that were asked for pretrained weights but ran on a random init
+_FALLBACKS: set = set()
+
+
+def register_model(name, input_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    def deco(builder):
+        _MODEL_REGISTRY[name] = (builder, input_size, mean, std)
+        return builder
+
+    return deco
+
+
+def list_models() -> List[str]:
+    return sorted(_MODEL_REGISTRY)
+
+
+def record_fallback(name: str) -> None:
+    """Note that ``name`` ran on random weights in place of pretrained ones."""
+    _FALLBACKS.add(str(name))
+
+
+def fallback_weights_used() -> List[str]:
+    return sorted(_FALLBACKS)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing CUDA when no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain path on the CPU")
+    return dev
+
+
+class Preprocess(nn.Module):
+    """Resize + normalize on NHWC input (JAX ``Preprocess``)."""
+
+    def __init__(self, size: int, mean: tuple, std: tuple):
+        super().__init__()
+        self.size = size
+        self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(std, dtype=torch.float32),
+                             persistent=False)
+
+    def forward(self, x):
+        if x.shape[1] != self.size or x.shape[2] != self.size:
+            # jax.image.resize antialiases when it shrinks; F.interpolate
+            # does so only when asked (and antialiasing an enlargement
+            # changes nothing)
+            x = F.interpolate(x.permute(0, 3, 1, 2), size=(self.size, self.size),
+                              mode="bilinear", align_corners=False,
+                              antialias=x.shape[1] > self.size)
+            x = x.permute(0, 2, 3, 1).contiguous()
+        return (x - self.mean) / self.std
+
+
+class WrappedModel(nn.Module):
+    """Preprocessing + backbone; NHWC in, logits out."""
+
+    def __init__(self, backbone: nn.Module, size: int, mean: tuple, std: tuple):
+        super().__init__()
+        self.preprocess = Preprocess(size, mean, std)
+        self.backbone = backbone
+
+    def forward(self, x):
+        # a contiguous NHWC tensor permuted to NCHW is channels_last: no copy
+        return self.backbone(self.preprocess(x).permute(0, 3, 1, 2))
+
+
+@dataclasses.dataclass
+class Surrogate:
+    """A ready-to-attack model: module + metadata."""
+
+    name: str
+    module: nn.Module
+    input_size: int
+    num_classes: int = 1000
+    # set by Attack.__init__ for a low-precision forward: apply() casts fp32
+    # input to this dtype and returns fp32 logits
+    compute_dtype: Optional[torch.dtype] = None
+
+    def apply(self, x):
+        cd = self.compute_dtype
+        if cd is not None and x.dtype == torch.float32:
+            return self.module(x.to(cd)).float()
+        return self.module(x)
+
+
+def _weights_path(name: str) -> Optional[str]:
+    root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
+    p = os.path.join(root, f"{name}.npz")
+    return p if os.path.exists(p) else None
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Flat variables dict as ``save_npz_variables`` writes it."""
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random init at Flax's default scales: lecun-normal (truncated
+    at two standard deviations) kernels, zero biases, identity BatchNorm."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                # the truncated normal's std is 0.8796 of the untruncated one
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
+def make_model(
+    name: str,
+    pretrained: bool = True,
+    seed: int = 42,
+    input_size: Optional[int] = None,
+    device="cuda",
+    **kwargs,
+) -> Surrogate:
+    """Build a wrapped surrogate by registry name, in eval mode with every
+    parameter frozen (the attack differentiates the input only).
+
+    The weights are built on the CPU and then moved, so one ``seed`` gives
+    the same model on every device.
+    """
+    dev = resolve_device(device)
+    if name not in _MODEL_REGISTRY:
+        raise ValueError(f"Unknown model {name!r}; available: {list_models()}")
+    builder, size, mean, std = _MODEL_REGISTRY[name]
+    if input_size is not None:
+        size = input_size
+    backbone = builder(**kwargs)
+    module = WrappedModel(backbone, size, mean, std)
+    wpath = _weights_path(name) if pretrained else None
+    if wpath is not None:
+        load_flat_variables(module, load_npz(wpath))
+    else:
+        if pretrained:
+            record_fallback(name)
+        init_weights(module, torch.Generator().manual_seed(seed))
+    module.eval().requires_grad_(False)
+    module.to(device=dev, memory_format=torch.channels_last)
+    return Surrogate(name=name, module=module, input_size=size,
+                     num_classes=getattr(backbone, "num_classes", 1000))
+
+
+def resolve_model(spec, **kwargs) -> Surrogate:
+    if isinstance(spec, Surrogate):
+        return spec
+    if isinstance(spec, str):
+        return make_model(spec, **kwargs)
+    raise TypeError(f"Cannot resolve model spec {spec!r} (ensembles are not "
+                    "ported yet)")
+
+
+# model definition modules register themselves on import
+from . import toy  # noqa: E402,F401
+from . import resnet  # noqa: E402,F401
