@@ -8,13 +8,21 @@ The main path is MI-FGSM on a full-width ResNet-50 at 224², batch 128,
 random weights.  Phases:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compile the CUDA kernel from ``transferattack_torch/ops/csrc``;
+2. build: compile the CUDA kernels from ``transferattack_torch/ops/csrc``,
+   one nvcc per source, all started together;
 3. kernel: ``fused_sign_update`` bit-exact with its plain PyTorch version at
    the main-path shape and at a ragged one, and both timed;
 4. fp32 parity: MI-FGSM on the card (TF32 off) against the same model on the
    CPU, 2 images, 3 iterations: deltas agree in sign on > 99% of elements;
 5. main path: bounds, a loss that rose, exactly 10 kernel launches per call,
-   white-box ASR and images per second.
+   white-box ASR and images per second;
+6. kernels 2-3: the fused backward-input kernels ``fused_bwd_1x1`` (with and
+   without skip) and ``fused_bwd_3x3``, bf16, within one bf16 rounding of
+   their plain versions at ResNet-50 stage-1 shapes (batch 128, 56²) and at
+   ragged and stage-4 shapes; kernel, plain and library call timed;
+7. chain: ``bottleneck_bwd_input`` on a BN-folded ``Bottleneck(256, 64)``
+   at batch 128, 56², bf16, against the plain chain and against autograd
+   of the block, with exactly 2 + 1 launches per call, and timed.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -23,24 +31,35 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import transferattack_torch as tt
 from transferattack_torch.attack import softmax_cross_entropy
+from transferattack_torch.models import init_weights
+from transferattack_torch.models.resnet import Bottleneck, fold_bn
 from transferattack_torch.ops import _build
+from transferattack_torch.ops import fused_bwd as fb
 from transferattack_torch.ops.fused_update import (
     fused_sign_update,
     fused_sign_update_plain,
 )
+from transferattack_torch.utils.timing import bound_ms, card, median_ms
 
 REPO = Path(__file__).resolve().parent
+KERNEL_SOURCES = ("fused_update", "fused_bwd")
 EPS, ALPHA = 16 / 255, 1.6 / 255
 MAIN_SHAPE = (128, 224, 224, 3)
+STAGE1 = (128, 56, 56)  # ResNet-50 stage 1 at batch 128
+BWD_TOL = 1e-2    # max|out - ref| / max|ref|: one bf16 rounding
+CHAIN_TOL = 2e-2  # three roundings, in another order than cuBLAS/cuDNN/autograd
+FUSED_BWD = "transferattack_tpu/ops/fused_bwd.py"
+FUSED_BWD_CU = "transferattack_torch/ops/csrc/fused_bwd.cu"
 
 
 def check(ok: bool, what: str) -> None:
@@ -60,23 +79,15 @@ def update_inputs(shape, gen, dev):
     return d, m, x
 
 
-def median_ms(fn, reps: int = 20, burst: int = 10, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events: ``reps``
-    samples, each a burst of ``burst`` back-to-back calls, so the queue
-    stays full and the host's launch latency is not timed."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(burst):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / burst)
-    return statistics.median(times)
+def errors(out, ref):
+    """max|out - ref| and its ratio to max|ref|, in fp32."""
+    ref = ref.float()
+    err = float((out.float() - ref).abs().max())
+    return err, err / (float(ref.abs().max()) or 1.0)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def main() -> None:
@@ -86,19 +97,19 @@ def main() -> None:
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0]
+    smi = card()
     print(f"[1 device] torch.cuda.get_device_name(0): {name}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load_library("fused_update")
-    print(f"[2 build] {_build.library_path('fused_update').relative_to(REPO)} "
-          f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))
+    for src in KERNEL_SOURCES:
+        _build.load_library(src)
+    built = ", ".join(str(_build.library_path(s).relative_to(REPO)) for s in KERNEL_SOURCES)
+    print(f"[2 build] {built} built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -115,10 +126,10 @@ def main() -> None:
     d, m, x = update_inputs(MAIN_SHAPE, gen, dev)
     kernel_ms = median_ms(lambda: fused_sign_update(d, m, x, ALPHA, EPS, 0.0, 1.0))
     plain_ms = median_ms(lambda: fused_sign_update_plain(d, m, x, ALPHA, EPS, 0.0, 1.0))
-    nbytes = 16 * d.numel()
-    print(f"[3 kernel] {MAIN_SHAPE} fp32, median of 20 bursts of 10 on {card}: kernel "
-          f"{kernel_ms:.4f} ms ({nbytes / kernel_ms / 1e9:.1f} TB/s of 16 B/element), "
-          f"plain {plain_ms:.4f} ms")
+    update_bound, update_bound_by = bound_ms(4 * nbytes(d))  # d, m, x in; out
+    print(f"[3 kernel] {MAIN_SHAPE} fp32, median of 20 bursts of 10 on {smi}: kernel "
+          f"{kernel_ms:.4f} ms ({4 * nbytes(d) / kernel_ms / 1e9:.1f} TB/s of 16 B/element), "
+          f"plain {plain_ms:.4f} ms, bound {update_bound:.4f} ms")
     del d, m, x
 
     # 4. fp32 slice: the card against the CPU
@@ -147,7 +158,7 @@ def main() -> None:
     with torch.no_grad():
         logits0 = attack.model.apply(x)
     y = logits0.argmax(-1)
-    fused_sign_update.launches = 0
+    fused_sign_update.launches = fb.fused_bwd_1x1.launches = fb.fused_bwd_3x3.launches = 0
     delta = attack(x, y)
     torch.cuda.synchronize()
     launches = fused_sign_update.launches
@@ -176,18 +187,165 @@ def main() -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     print(f"[5 main path] {MAIN_SHAPE[0] / statistics.median(times):.2f} img/s "
-          f"(calls {', '.join(f'{t:.4f}' for t in times)} s) on {card}")
+          f"(calls {', '.join(f'{t:.4f}' for t in times)} s) on {smi}")
+    del attack, x, y, delta, adv, logits0, logits1
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_sign_update",
-        "route": "cuda",
-        "source": "transferattack_torch/ops/csrc/fused_update.cu",
-        "replaces": "transferattack_tpu/ops/pallas_update.py:33",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. kernels 2-3 against their plain versions, bf16
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def relu_mask(shape):
+        return (torch.rand(shape, generator=gen, device=dev) > 0.5).to(torch.bfloat16)
+
+    b, h, w = STAGE1
+    m1 = b * h * w
+    cases_1x1 = []
+    for m, cout, cin, skip in ((m1, 256, 64, False), (m1, 64, 256, True),
+                               (1031, 256, 64, False), (1031, 64, 256, True),
+                               (98, 2048, 512, False), (98, 512, 2048, True)):
+        args = (randn((m, cout)), relu_mask((m, cout)), randn((cout, cin), 0.05),
+                randn((m, cin)) if skip else None)
+        out = fb.fused_bwd_1x1(*args)
+        err, rel = errors(out, fb.fused_bwd_1x1_plain(*args))
+        label = f"fused_bwd_1x1 ({m}, {cout}) -> {cin}{' + skip' if skip else ''}"
+        check(rel <= BWD_TOL, f"{label}: max|out-ref|/max|ref| = {rel}")
+        print(f"[6 kernels] {label}: max|out-ref|/max|ref| = {rel:.3e} "
+              f"(bound {BWD_TOL:g})")
+        if m == m1:
+            g, mk, wt, sk = args
+            work = (nbytes(*args, out), 2 * m * cout * cin)
+            case = {
+                "shape": label, "replaces": f"{FUSED_BWD}:{50 if skip else 56}",
+                "bytes": work[0], "flops": work[1],
+                "max_abs_err": err, "max_rel_err": rel,
+                "ms": median_ms(lambda: fb.fused_bwd_1x1(g, mk, wt, sk)),
+                "plain_ms": median_ms(lambda: fb.fused_bwd_1x1_plain(g, mk, wt, sk)),
+                "library_ms": median_ms(lambda: torch.matmul(g, wt)),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(*work))),
+            }
+            cases_1x1.append(case)
+            print(f"[6 kernels] {label}: kernel {case['ms']:.4f} ms, plain "
+                  f"{case['plain_ms']:.4f} ms, torch.matmul {case['library_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) on {smi}")
+        del args, out
+    for shape, cin in ((STAGE1 + (64,), 64), ((3, 13, 17, 64), 64), ((2, 7, 7, 512), 512)):
+        w_fwd = randn((3, 3, cin, shape[3]), 0.05)  # forward HWIO
+        g, mk, w_col = randn(shape), relu_mask(shape), fb.flip_3x3_for_bwd(w_fwd)
+        out = fb.fused_bwd_3x3(g, mk, w_col)
+        err, rel = errors(out, fb.fused_bwd_3x3_plain(g, mk, w_col))
+        label = f"fused_bwd_3x3 {shape} -> {cin}"
+        check(rel <= BWD_TOL, f"{label}: max|out-ref|/max|ref| = {rel}")
+        print(f"[6 kernels] {label}: max|out-ref|/max|ref| = {rel:.3e} "
+              f"(bound {BWD_TOL:g})")
+        if shape[:3] == STAGE1:
+            # library yardsticks without the mask: one cuDNN convolution of g
+            # with the flipped kernel (w_col seen as OIHW), and the dgrad call
+            g_nchw = g.permute(0, 3, 1, 2)
+            flipped = w_col.view(3, 3, shape[3], cin).permute(3, 2, 0, 1)
+            w_oihw = w_fwd.permute(3, 2, 0, 1)
+            in_size = (shape[0], cin) + shape[1:3]
+            dgrad_ms = median_ms(lambda: torch.nn.grad.conv2d_input(
+                in_size, w_oihw, g_nchw, padding=1))
+            work = (nbytes(g, mk, w_col, out), 2 * out.numel() * 9 * shape[3])
+            row_3x3 = {
+                "max_abs_err": err, "max_rel_err": rel,
+                "ms": median_ms(lambda: fb.fused_bwd_3x3(g, mk, w_col)),
+                "plain_ms": median_ms(lambda: fb.fused_bwd_3x3_plain(g, mk, w_col)),
+                "library_ms": median_ms(lambda: F.conv2d(g_nchw, flipped, padding=1)),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(*work))),
+            }
+            print(f"[6 kernels] {label}: kernel {row_3x3['ms']:.4f} ms, plain "
+                  f"{row_3x3['plain_ms']:.4f} ms, F.conv2d with the flipped kernel "
+                  f"{row_3x3['library_ms']:.4f} ms, torch.nn.grad.conv2d_input "
+                  f"{dgrad_ms:.4f} ms, bound {row_3x3['bound_ms']:.4f} ms "
+                  f"({row_3x3['bound_by']}) on {smi}")
+        del g, mk, w_col, out
+
+    # 7. the chain (kernel 4) on a BN-folded Bottleneck, the shape of layer1.1
+    blk = Bottleneck(256, 64)
+    init_weights(blk, torch.Generator().manual_seed(7))
+    cpu_gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():  # BN off the identity, so that folding matters
+        for norm in (blk.bn1, blk.bn2, blk.bn3):
+            c = norm.num_features
+            norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=cpu_gen))
+            norm.bias.copy_(0.05 * torch.randn(c, generator=cpu_gen))
+            norm.running_mean.copy_(0.05 * torch.randn(c, generator=cpu_gen))
+            norm.running_var.copy_(0.5 + torch.rand(c, generator=cpu_gen))
+    fold_bn(blk)
+    blk = blk.eval().requires_grad_(False).to(dev, torch.bfloat16,
+                                              memory_format=torch.channels_last)
+    x = torch.relu(torch.randn((b, 256, h, w), generator=gen, device=dev))
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g = randn((b, h, w, 256))
+
+    def nhwc(t):  # a channels_last NCHW tensor as contiguous NHWC
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    with torch.no_grad():  # the block's forward, keeping its three ReLU inputs
+        a1 = blk.bn1(blk.conv1(x))
+        a2 = blk.bn2(blk.conv2(F.relu(a1)))
+        a3 = blk.bn3(blk.conv3(F.relu(a2))) + x
+    masks = {k: nhwc((a > 0).to(torch.bfloat16)) for k, a in
+             (("out", a3), ("c2", a2), ("c1", a1))}
+    del a1, a2, a3
+    weights = {k: conv.weight.permute(2, 3, 1, 0) for k, conv in  # OIHW -> HWIO
+               (("w1", blk.conv1), ("w2", blk.conv2), ("w3", blk.conv3))}
+    xg = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        auto = nhwc(torch.autograd.grad(blk(xg), xg, grad_outputs=g.permute(0, 3, 1, 2))[0])
+    fb.fused_bwd_1x1.launches = fb.fused_bwd_3x3.launches = 0
+    dx = fb.bottleneck_bwd_input(g, masks, weights)
+    torch.cuda.synchronize()
+    n_1x1, n_3x3 = fb.fused_bwd_1x1.launches, fb.fused_bwd_3x3.launches
+    check((n_1x1, n_3x3) == (2, 1),
+          f"chain launched the 1x1 {n_1x1} and the 3x3 {n_3x3} times, expected 2 and 1")
+    check(bool(torch.isfinite(dx).all()) and tuple(dx.shape) == (b, h, w, 256),
+          f"chain output not finite or of shape {tuple(dx.shape)}")
+    chain_err, rel_plain = errors(dx, fb.bottleneck_bwd_input_plain(g, masks, weights))
+    rel_auto = errors(dx, auto)[1]
+    check(rel_plain <= CHAIN_TOL, f"chain vs plain chain: {rel_plain}")
+    check(rel_auto <= CHAIN_TOL, f"chain vs autograd of the folded block: {rel_auto}")
+    print(f"[7 chain] Bottleneck(256, 64) BN folded, {STAGE1} bf16: {n_1x1} + {n_3x3} "
+          f"launches; max|dx-ref|/max|ref| = {rel_plain:.3e} against the plain chain, "
+          f"{rel_auto:.3e} against autograd (bound {CHAIN_TOL:g})")
+    chain = {
+        "max_abs_err": chain_err, "max_rel_err": rel_plain,
+        "ms": median_ms(lambda: fb.bottleneck_bwd_input(g, masks, weights)),
+        "plain_ms": median_ms(lambda: fb.bottleneck_bwd_input_plain(g, masks, weights)),
+        "library_ms": None,
+    }
+    chain["bound_ms"], chain["bound_by"] = bound_ms(
+        nbytes(g, *masks.values(), *weights.values(), dx),
+        2 * b * h * w * 64 * (256 + 9 * 64 + 256))
+    jax_floor = bound_ms(2 * b * h * w * (256 * 3 + 64 * 3 + 256))[0]
+    print(f"[7 chain] kernels {chain['ms']:.4f} ms, plain {chain['plain_ms']:.4f} ms, "
+          f"bound {chain['bound_ms']:.4f} ms ({chain['bound_by']}; inputs and output "
+          f"once), floor of the JAX bench's byte count {jax_floor:.4f} ms, on {smi}")
+
+    # the 1x1 row: the two launches of one chain call together
+    row_1x1 = {k: sum(c[k] for c in cases_1x1) for k in ("ms", "plain_ms", "library_ms")}
+    row_1x1["bound_ms"], row_1x1["bound_by"] = bound_ms(
+        sum(c["bytes"] for c in cases_1x1), sum(c["flops"] for c in cases_1x1))
+    print(json.dumps({"kernels": [
+        {"name": "fused_sign_update", "route": "cuda",
+         "source": "transferattack_torch/ops/csrc/fused_update.cu",
+         "replaces": "transferattack_tpu/ops/pallas_update.py:33",
+         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+         "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,
+         "library_ms": None},
+        {"name": "fused_bwd_1x1", "route": "cuda", "source": FUSED_BWD_CU,
+         "replaces": f"{FUSED_BWD}:50", "launches": n_1x1,
+         "max_abs_err": max(c["max_abs_err"] for c in cases_1x1), **row_1x1,
+         "cases": cases_1x1},
+        {"name": "fused_bwd_3x3", "route": "cuda", "source": FUSED_BWD_CU,
+         "replaces": f"{FUSED_BWD}:101", "launches": n_3x3, **row_3x3},
+        {"name": "bottleneck_bwd_input", "route": "cuda", "source": FUSED_BWD_CU,
+         "replaces": f"{FUSED_BWD}:200", "launches": n_1x1 + n_3x3, **chain},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import argparse
 import re
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -27,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import transferattack_torch as tt  # noqa: E402
+from transferattack_torch.utils.timing import card  # noqa: E402
 
 CLASSES = [  # first match wins
     ("fused_sign_update", re.compile(r"fused_sign_update")),
@@ -53,9 +53,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_main_path: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    smi = card()
     attack = tt.load_attack_class("mifgsm")(model_name="resnet50",
                                             compute_dtype="bfloat16", device="cuda")
     x = torch.from_numpy(np.random.RandomState(2).rand(128, 224, 224, 3)
@@ -76,7 +74,7 @@ def main() -> None:
     busy = sum(by_class.values())
     if busy <= 0:
         raise SystemExit("profile_torch_main_path: the profiler recorded no device time")
-    print(f"one MI-FGSM call, ResNet-50 bf16, batch 128, 224², 10 iterations, on {card}")
+    print(f"one MI-FGSM call, ResNet-50 bf16, batch 128, 224², 10 iterations, on {smi}")
     print(f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.2f}% busy, {100 - 100 * busy / wall_us:.2f}% idle)")
     for label, us in sorted(by_class.items(), key=lambda kv: -kv[1]):

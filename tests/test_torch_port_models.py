@@ -210,3 +210,25 @@ def test_bridge_is_strict(fault):
                                           "extra": "unused \\['backbone.conv3.weight'",
                                           "shape": "wrong shape"}[fault]):
         load_flat_variables(ts.module, flat)
+
+
+def test_fold_bn_matches_jax_fold_bn_variables():
+    """``fold_bn`` of the port's module equals JAX's ``fold_bn_variables``
+    bridged into the port, and leaves the logits as they were."""
+    from transferattack_tpu.models.resnet import fold_bn_variables
+    from transferattack_torch.models.resnet import Bottleneck, ResNet, fold_bn
+
+    js, ts, _ = narrow_bottleneck_pair(seed=5)
+    ref = tm.WrappedModel(ResNet(NARROW_STAGES, Bottleneck, num_classes=10), 32,
+                          jm.IMAGENET_MEAN, jm.IMAGENET_STD)
+    load_flat_variables(ref, {k: np.asarray(v)
+                              for k, v in flatten(fold_bn_variables(js.variables)).items()})
+    x = torch.from_numpy(np.random.RandomState(6).rand(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        before = ts.apply(x).numpy()
+        fold_bn(ts.module)
+        after = ts.apply(x).numpy()
+    folded = ts.module.state_dict()
+    for k, v in ref.state_dict().items():
+        np.testing.assert_allclose(folded[k].numpy(), v.numpy(), rtol=1e-6, err_msg=k)
+    np.testing.assert_allclose(after, before, atol=5e-4, rtol=1e-4)

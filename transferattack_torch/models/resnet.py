@@ -2,7 +2,8 @@
 
 Module names are torchvision's (``layer1.0.downsample.0``), so a PyTorch
 ``state_dict`` loads natively and the JAX package's weights load through
-:mod:`transferattack_torch.utils.bridge`.  BatchNorm runs in eval mode.  The
+:mod:`transferattack_torch.utils.bridge`.  BatchNorm runs in eval mode;
+:func:`fold_bn` folds it into the convs, in place and exactly.  The
 gradient-surgery options of the JAX ResNet (``SurgeryConfig``, taps, LLTA
 gammas) belong to attacks that are not ported yet.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -104,6 +106,40 @@ class ResNet(nn.Module):
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return self.fc(x.mean(dim=(2, 3)))
+
+
+@torch.no_grad()
+def fold_bn(module: nn.Module) -> nn.Module:
+    """Fold every conv→BatchNorm pair's scale into the conv weight, in place
+    (counterpart of ``fold_bn_variables``, an exact rewrite).
+
+    ``weight *= γ/√(var+eps)`` per output channel, ``β ← β − mean·γ/√(var+eps)``,
+    and the BN statistics neutralised (γ = 1, mean = 0, var = 1 − eps), so
+    the stock ``nn.BatchNorm2d`` stays in place and adds only the bias.  Pairs
+    are matched by torchvision's names: ``convN`` ↔ ``bnN`` and
+    ``downsample.0`` ↔ ``downsample.1``.  Returns ``module``.
+    """
+    mods = dict(module.named_modules())
+    for name, norm in mods.items():
+        if not isinstance(norm, nn.BatchNorm2d):
+            continue
+        prefix, _, leaf = name.rpartition(".")
+        if leaf.startswith("bn"):
+            conv_name = prefix + ("." if prefix else "") + "conv" + leaf[2:]
+        elif name.endswith("downsample.1"):
+            conv_name = name[:-1] + "0"
+        else:
+            continue
+        conv_mod = mods.get(conv_name)
+        if not isinstance(conv_mod, nn.Conv2d):
+            continue
+        mult = norm.weight / torch.sqrt(norm.running_var + norm.eps)
+        conv_mod.weight.mul_(mult.reshape(-1, 1, 1, 1))
+        norm.bias.sub_(norm.running_mean * mult)
+        norm.weight.fill_(1.0)
+        norm.running_mean.zero_()
+        norm.running_var.fill_(1.0 - norm.eps)
+    return module
 
 
 def _make(stage_sizes, block_cls, **defaults):

@@ -1,0 +1,203 @@
+"""Fused backward-input of the ResNet bottleneck: CUDA kernels and their plain versions.
+
+Counterpart of ``transferattack_tpu/ops/fused_bwd.py``, with its signatures
+and layouts: activations are NHWC ``(B, H, W, C)`` or flattened ``(M, C)``,
+forward kernels are HWIO, ``wt`` is ``(Cout, Cin)`` and ``w_col`` is
+``(9·Cout, Cin)`` tap-major.  A channels_last NCHW activation permuted by
+``(0, 2, 3, 1)`` is already such an NHWC tensor, so no copy is needed.
+
+  ``fused_bwd_1x1``         dx = (g · mask) @ wt (+ skip)
+  ``fused_bwd_3x3``         dx = conv3x3_same(g · mask, W′)
+  ``bottleneck_bwd_input``  the backward-input chain of one bottleneck
+
+The kernels are ``csrc/fused_bwd.cu``; the plain versions are the oracle the
+CPU tests and ``chip_smoke.py`` hold them against.  The chain has no
+BatchNorm scales, so it equals a real block's input gradient once BN is
+folded into the convs (:func:`transferattack_torch.models.resnet.fold_bn`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from ._build import load_library
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = load_library("fused_bwd")
+        lib.fused_bwd_1x1_bf16.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.fused_bwd_3x3_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.fused_bwd_1x1_bf16.restype = lib.fused_bwd_3x3_bf16.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def flip_3x3_for_bwd(w):
+    """(3, 3, Cin, Cout) forward kernel → (9·Cout, Cin) backward kernel:
+    spatial flip and channel transpose, tap-major rows."""
+    return w.flip(0, 1).permute(0, 1, 3, 2).reshape(9 * w.shape[3], w.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# plain versions (counterparts of jnp_bwd_1x1, jnp_bwd_3x3 and
+# bottleneck_bwd_input_jnp)
+# ---------------------------------------------------------------------------
+
+def fused_bwd_1x1_plain(g, mask, wt, skip=None):
+    """(g · mask) @ wt (+ skip) in torch ops.  ``addmm`` hands the skip to the
+    GEMM as its C operand, so on the card cuBLAS adds it to the fp32
+    accumulator before the one rounding to ``g.dtype``, as JAX does."""
+    gm = g * mask
+    return gm @ wt if skip is None else torch.addmm(skip, gm, wt)
+
+
+def fused_bwd_3x3_plain(g, mask, w_col):
+    """conv3x3_same(g · mask, W′) as one convolution with the flipped kernel."""
+    cout, cin = g.shape[-1], w_col.shape[1]
+    weight = w_col.reshape(3, 3, cout, cin).permute(3, 2, 0, 1)  # OIHW
+    out = F.conv2d((g * mask).permute(0, 3, 1, 2), weight, padding=1)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def bottleneck_bwd_input_plain(g, masks: Mapping, weights: Mapping):
+    """Backward-input chain of one bottleneck in torch ops.
+
+    g: (B, H, W, C4) gradient at the block output; masks: ``out`` (C4),
+    ``c2`` and ``c1`` (C) ReLU masks, NHWC; weights: ``w1`` (1, 1, C4, C),
+    ``w2`` (3, 3, C, C) and ``w3`` (1, 1, C, C4) forward HWIO kernels.
+    """
+    b, h, w, _ = g.shape
+    flat = (g * masks["out"]).reshape(b * h * w, -1)
+    d2 = (flat @ weights["w3"][0, 0].T).reshape(b, h, w, -1)
+    d1 = fused_bwd_3x3_plain(d2, masks["c2"], flip_3x3_for_bwd(weights["w2"]))
+    dx = fused_bwd_1x1_plain(d1.reshape(b * h * w, -1),
+                             masks["c1"].reshape(b * h * w, -1),
+                             weights["w1"][0, 0].T, skip=flat)
+    return dx.reshape(b, h, w, -1)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_cuda(name: str, tensors, channels) -> None:
+    """Raise ``ValueError`` for what the kernels do not take."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"{name}: needs bfloat16 on the card, got "
+                         f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
+    if any(c <= 0 or c % 16 for c in channels):
+        raise ValueError(f"{name}: channel counts must be multiples of 16, got "
+                         f"{list(channels)}")
+
+
+def fused_bwd_1x1(g, mask, wt, skip=None):
+    """(g · mask) @ wt (+ skip) in one pass: g, mask (M, Cout); wt (Cout, Cin);
+    skip, optional, (M, Cin).  Any M.
+
+    CUDA tensors go through the CUDA kernel: bf16, contiguous, 16-byte
+    aligned, channel counts multiples of 16, or this raises ``ValueError``.
+    CPU tensors go through :func:`fused_bwd_1x1_plain`.
+    ``fused_bwd_1x1.launches`` counts kernel launches.
+    """
+    tensors = [g, mask, wt] + ([] if skip is None else [skip])
+    if _on_cpu(tensors):
+        return fused_bwd_1x1_plain(g, mask, wt, skip)
+    if (g.dim() != 2 or wt.dim() != 2 or mask.shape != g.shape or wt.shape[0] != g.shape[1]
+            or (skip is not None and skip.shape != (g.shape[0], wt.shape[1]))):
+        raise ValueError("fused_bwd_1x1: shapes do not fit: "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    _check_cuda("fused_bwd_1x1", tensors, wt.shape)
+    m, cout = g.shape
+    cin = wt.shape[1]
+    out = torch.empty((m, cin), dtype=g.dtype, device=g.device)
+    if m == 0:
+        return out
+    with torch.cuda.device(g.device):
+        rc = _lib().fused_bwd_1x1_bf16(
+            g.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+            None if skip is None else skip.data_ptr(), out.data_ptr(), m, cout, cin,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_bwd_1x1: CUDA error {rc} at launch")
+    fused_bwd_1x1.launches += 1
+    return out
+
+
+fused_bwd_1x1.launches = 0
+
+
+def fused_bwd_3x3(g, mask, w_col):
+    """conv3x3_same(g · mask, W′), the backward-input of a SAME 3×3
+    stride-1 conv: g, mask (B, H, W, Cout); w_col (9·Cout, Cin) from
+    :func:`flip_3x3_for_bwd`.  Any B, H and W.
+
+    CUDA tensors go through the CUDA kernel (an implicit GEMM: no im2col and
+    no padded copy in device memory) under the conditions of
+    :func:`fused_bwd_1x1`; CPU tensors go through :func:`fused_bwd_3x3_plain`.
+    ``fused_bwd_3x3.launches`` counts kernel launches.
+    """
+    tensors = [g, mask, w_col]
+    if _on_cpu(tensors):
+        return fused_bwd_3x3_plain(g, mask, w_col)
+    if (g.dim() != 4 or w_col.dim() != 2 or mask.shape != g.shape
+            or w_col.shape[0] != 9 * g.shape[3]):
+        raise ValueError("fused_bwd_3x3: shapes do not fit: "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    _check_cuda("fused_bwd_3x3", tensors, (g.shape[3], w_col.shape[1]))
+    b, h, w, cout = g.shape
+    cin = w_col.shape[1]
+    out = torch.empty((b, h, w, cin), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(g.device):
+        rc = _lib().fused_bwd_3x3_bf16(
+            g.data_ptr(), mask.data_ptr(), w_col.data_ptr(), out.data_ptr(),
+            b, h, w, cout, cin, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_bwd_3x3: CUDA error {rc} at launch")
+    fused_bwd_3x3.launches += 1
+    return out
+
+
+fused_bwd_3x3.launches = 0
+
+
+def bottleneck_bwd_input(g, masks: Mapping, weights: Mapping):
+    """The chain of :func:`bottleneck_bwd_input_plain` in three launches:
+    1×1ᵀ with the output mask, 3×3ᵀ with the ``c2`` mask, and 1×1ᵀ with the
+    ``c1`` mask plus the skip ``g · mask_out``, which is computed outside
+    the kernels as in JAX.  CPU tensors take the plain chain."""
+    if _on_cpu([g, *masks.values(), *weights.values()]):
+        return bottleneck_bwd_input_plain(g, masks, weights)
+    if not all(t.is_contiguous() for t in (g, *masks.values())):
+        raise ValueError("bottleneck_bwd_input: g and the masks must be contiguous")
+    b, h, w, c4 = g.shape
+    m = b * h * w
+    flat_g = g.view(m, c4)
+    mask_out = masks["out"].view(m, c4)
+    d2 = fused_bwd_1x1(flat_g, mask_out, weights["w3"][0, 0].T.contiguous())
+    d1 = fused_bwd_3x3(d2.view(b, h, w, -1), masks["c2"], flip_3x3_for_bwd(weights["w2"]))
+    dx = fused_bwd_1x1(d1.view(m, -1), masks["c1"].view(m, -1),
+                       weights["w1"][0, 0].T.contiguous(), skip=flat_g * mask_out)
+    return dx.view(b, h, w, -1)
