@@ -8,8 +8,8 @@ The main path is MI-FGSM on a full-width ResNet-50 at 224², batch 128,
 random weights.  Phases:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compile the CUDA kernels from ``transferattack_torch/ops/csrc``,
-   one nvcc per source, all started together;
+2. build: compile the CUDA kernels from ``transferattack_torch/ops/csrc``
+   (three sources), one nvcc per source, all started together;
 3. kernel: ``fused_sign_update`` bit-exact with its plain PyTorch version at
    the main-path shape and at a ragged one, and both timed;
 4. fp32 parity: MI-FGSM on the card (TF32 off) against the same model on the
@@ -18,8 +18,12 @@ random weights.  Phases:
    white-box ASR and images per second;
 6. kernels 2-3: the fused backward-input kernels ``fused_bwd_1x1`` (with and
    without skip) and ``fused_bwd_3x3``, bf16, within one bf16 rounding of
-   their plain versions at ResNet-50 stage-1 shapes (batch 128, 56²) and at
-   ragged and stage-4 shapes; kernel, plain and library call timed;
+   their plain versions: the 1×1 at ResNet-50 stage-1 shapes (batch 128, 56²)
+   and at ragged and stage-4 shapes, the 3×3 at the stride-1 3×3 shapes of
+   stages 1-4 (batch 128) and at shapes whose blocks cross images, with a
+   partial chunk and N block, and wider than a block; kernel, plain and
+   library call timed at the stage shapes; an image too wide for the 3×3's
+   halo raises;
 7. chain: ``bottleneck_bwd_input`` on a BN-folded ``Bottleneck(256, 64)``
    at batch 128, 56², bf16, against the plain chain and against autograd
    of the block, with exactly 2 + 1 launches per call, and timed.
@@ -52,7 +56,7 @@ from transferattack_torch.ops.fused_update import (
 from transferattack_torch.utils.timing import bound_ms, card, median_ms
 
 REPO = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("fused_update", "fused_bwd")
+KERNEL_SOURCES = ("fused_update", "fused_bwd", "fused_bwd_3x3")
 EPS, ALPHA = 16 / 255, 1.6 / 255
 MAIN_SHAPE = (128, 224, 224, 3)
 STAGE1 = (128, 56, 56)  # ResNet-50 stage 1 at batch 128
@@ -60,6 +64,12 @@ BWD_TOL = 1e-2    # max|out - ref| / max|ref|: one bf16 rounding
 CHAIN_TOL = 2e-2  # three roundings, in another order than cuBLAS/cuDNN/autograd
 FUSED_BWD = "transferattack_tpu/ops/fused_bwd.py"
 FUSED_BWD_CU = "transferattack_torch/ops/csrc/fused_bwd.cu"
+FUSED_BWD_3X3_CU = "transferattack_torch/ops/csrc/fused_bwd_3x3.cu"
+# the 3x3: ResNet-50's stride-1 3x3s at batch 128 (stage 1 first, the
+# headline), then blocks across images; a partial chunk and N block; W wider
+# than a block.  (shape of g, output channels)
+STAGES_3X3 = tuple(((128, s, s, c), c) for s, c in ((56, 64), (28, 128), (14, 256), (7, 512)))
+EDGES_3X3 = (((3, 13, 17, 64), 64), ((5, 4, 5, 48), 16), ((1, 3, 300, 64), 64))
 
 
 def check(ok: bool, what: str) -> None:
@@ -231,38 +241,45 @@ def main() -> None:
                   f"{case['plain_ms']:.4f} ms, torch.matmul {case['library_ms']:.4f} ms, "
                   f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) on {smi}")
         del args, out
-    for shape, cin in ((STAGE1 + (64,), 64), ((3, 13, 17, 64), 64), ((2, 7, 7, 512), 512)):
-        w_fwd = randn((3, 3, cin, shape[3]), 0.05)  # forward HWIO
-        g, mk, w_col = randn(shape), relu_mask(shape), fb.flip_3x3_for_bwd(w_fwd)
+    cases_3x3, err_3x3 = [], 0.0
+    for shape, cin in STAGES_3X3 + EDGES_3X3:
+        w_col = fb.flip_3x3_for_bwd(randn((3, 3, cin, shape[3]), 0.05))  # from HWIO
+        g, mk = randn(shape), relu_mask(shape)
         out = fb.fused_bwd_3x3(g, mk, w_col)
         err, rel = errors(out, fb.fused_bwd_3x3_plain(g, mk, w_col))
+        err_3x3 = max(err_3x3, err)
         label = f"fused_bwd_3x3 {shape} -> {cin}"
         check(rel <= BWD_TOL, f"{label}: max|out-ref|/max|ref| = {rel}")
         print(f"[6 kernels] {label}: max|out-ref|/max|ref| = {rel:.3e} "
               f"(bound {BWD_TOL:g})")
-        if shape[:3] == STAGE1:
-            # library yardsticks without the mask: one cuDNN convolution of g
-            # with the flipped kernel (w_col seen as OIHW), and the dgrad call
+        if (shape, cin) in STAGES_3X3:
+            # the library yardstick, without the mask: one cuDNN convolution
+            # of g with the flipped kernel (w_col seen as OIHW)
             g_nchw = g.permute(0, 3, 1, 2)
             flipped = w_col.view(3, 3, shape[3], cin).permute(3, 2, 0, 1)
-            w_oihw = w_fwd.permute(3, 2, 0, 1)
-            in_size = (shape[0], cin) + shape[1:3]
-            dgrad_ms = median_ms(lambda: torch.nn.grad.conv2d_input(
-                in_size, w_oihw, g_nchw, padding=1))
             work = (nbytes(g, mk, w_col, out), 2 * out.numel() * 9 * shape[3])
-            row_3x3 = {
-                "max_abs_err": err, "max_rel_err": rel,
+            case = {
+                "shape": label, "max_abs_err": err, "max_rel_err": rel,
                 "ms": median_ms(lambda: fb.fused_bwd_3x3(g, mk, w_col)),
                 "plain_ms": median_ms(lambda: fb.fused_bwd_3x3_plain(g, mk, w_col)),
                 "library_ms": median_ms(lambda: F.conv2d(g_nchw, flipped, padding=1)),
                 **dict(zip(("bound_ms", "bound_by"), bound_ms(*work))),
             }
-            print(f"[6 kernels] {label}: kernel {row_3x3['ms']:.4f} ms, plain "
-                  f"{row_3x3['plain_ms']:.4f} ms, F.conv2d with the flipped kernel "
-                  f"{row_3x3['library_ms']:.4f} ms, torch.nn.grad.conv2d_input "
-                  f"{dgrad_ms:.4f} ms, bound {row_3x3['bound_ms']:.4f} ms "
-                  f"({row_3x3['bound_by']}) on {smi}")
+            cases_3x3.append(case)
+            print(f"[6 kernels] {label}: kernel {case['ms']:.4f} ms, plain "
+                  f"{case['plain_ms']:.4f} ms, F.conv2d with the flipped kernel "
+                  f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+                  f"({case['bound_by']}) on {smi}")
         del g, mk, w_col, out
+    wide = torch.zeros((1, 1, fb.BWD_3X3_MAX_W + 1, 16), device=dev, dtype=torch.bfloat16)
+    try:
+        fb.fused_bwd_3x3(wide, wide, torch.zeros((144, 16), device=dev, dtype=torch.bfloat16))
+        check(False, f"fused_bwd_3x3 took an image {wide.shape[2]} pixels wide")
+    except ValueError as e:
+        print(f"[6 kernels] fused_bwd_3x3 {tuple(wide.shape)}: ValueError: {e}")
+    # the 3x3 row: stage 1 as its headline
+    row_3x3 = {k: cases_3x3[0][k] for k in
+               ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
     # 7. the chain (kernel 4) on a BN-folded Bottleneck, the shape of layer1.1
     blk = Bottleneck(256, 64)
@@ -341,9 +358,11 @@ def main() -> None:
          "replaces": f"{FUSED_BWD}:50", "launches": n_1x1,
          "max_abs_err": max(c["max_abs_err"] for c in cases_1x1), **row_1x1,
          "cases": cases_1x1},
-        {"name": "fused_bwd_3x3", "route": "cuda", "source": FUSED_BWD_CU,
-         "replaces": f"{FUSED_BWD}:101", "launches": n_3x3, **row_3x3},
-        {"name": "bottleneck_bwd_input", "route": "cuda", "source": FUSED_BWD_CU,
+        {"name": "fused_bwd_3x3", "route": "cuda", "source": FUSED_BWD_3X3_CU,
+         "replaces": f"{FUSED_BWD}:101", "launches": n_3x3, "max_abs_err": err_3x3,
+         **row_3x3, "cases": cases_3x3},
+        {"name": "bottleneck_bwd_input", "route": "cuda",
+         "source": "transferattack_torch/ops/fused_bwd.py",
          "replaces": f"{FUSED_BWD}:200", "launches": n_1x1 + n_3x3, **chain},
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -76,13 +76,22 @@ def test_plain_1x1_matches_jax(m, cout, cin, skip):
         np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-def test_plain_3x3_matches_jax():
+@pytest.mark.parametrize("shape,cin", [
+    ((2, 16, 16, 64), 64),
+    ((3, 13, 17, 64), 64),   # the kernel's 256-pixel blocks cross images
+    ((2, 4, 40, 16), 16),    # a block spans several images; 16 channels
+    ((5, 4, 5, 48), 16),     # a partial 64-channel chunk and a partial N block
+    ((1, 3, 300, 16), 32),   # W wider than a block
+], ids=["16x16", "13x17", "4x40_c16", "4x5_c48to16", "3x300"])
+def test_plain_3x3_matches_jax(shape, cin):
+    """Pins the oracle the CUDA kernel is held to, at the shapes that reach
+    its edge cases."""
     from transferattack_tpu.ops import fused_bwd as jfb
 
     rng = np.random.RandomState(1)
-    g = rng.randn(2, 16, 16, 64).astype(np.float32)
-    mask = (rng.rand(2, 16, 16, 64) > 0.5).astype(np.float32)
-    wfwd = (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    mask = (rng.rand(*shape) > 0.5).astype(np.float32)
+    wfwd = (rng.randn(3, 3, cin, shape[3]) * 0.05).astype(np.float32)
     w_col = fb.flip_3x3_for_bwd(torch.from_numpy(wfwd))
     np.testing.assert_array_equal(w_col.numpy(),
                                   np.asarray(jfb.flip_3x3_for_bwd(_jax(wfwd))))
@@ -90,6 +99,14 @@ def test_plain_3x3_matches_jax():
     for ref in (jfb.fused_bwd_3x3(_jax(g), _jax(mask), _jax(w_col.numpy()), interpret=True),
                 jfb.jnp_bwd_3x3(_jax(g), _jax(mask), _jax(wfwd))):
         np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_smem_3x3_fits_the_halo_up_to_w_613():
+    assert fb.smem_3x3(56) == (256 + 2 * 56 + 3) * 144 + 2 * 64 * 144 == 71_856
+    assert fb.smem_3x3(1) == 256 * 68 * 4  # the epilogue tile is the larger
+    assert fb.smem_3x3(613) == 232_272 <= fb.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="W <= 613"):
+        fb.smem_3x3(614)
 
 
 def test_plain_3x3_is_true_conv_backward():
@@ -241,8 +258,15 @@ def test_1x1_kernel_matches_plain(cuda, m, cout, cin, skip):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,cin", [((4, 56, 56, 64), 64), ((3, 13, 17, 64), 64),
-                                       ((1, 1, 1, 16), 32), ((2, 7, 7, 512), 512)])
+@pytest.mark.parametrize("shape,cin", [
+    ((4, 56, 56, 64), 64), ((3, 13, 17, 64), 64), ((1, 1, 1, 16), 32), ((2, 7, 7, 512), 512),
+    # ResNet-50's stride-1 3x3s at batch 128, stages 1 to 4
+    ((128, 56, 56, 64), 64), ((128, 28, 28, 128), 128), ((128, 14, 14, 256), 256),
+    ((128, 7, 7, 512), 512),
+    # a block spans several images, with a partial chunk and a partial N block;
+    # W wider than a block; the widest W whose halo fits
+    ((5, 4, 5, 48), 16), ((1, 3, 300, 64), 64), ((1, 2, 613, 16), 16),
+])
 def test_3x3_kernel_matches_plain(cuda, shape, cin):
     rng = np.random.RandomState(8)
     g = torch.from_numpy(rng.randn(*shape)).to(cuda, torch.bfloat16)
@@ -295,3 +319,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fb.fused_bwd_1x1(buf[1:].view(32, 64), g, wt)
     with pytest.raises(ValueError, match="shapes"):
         fb.fused_bwd_3x3(g.view(2, 4, 4, 64), g.view(2, 4, 4, 64), wt)
+
+
+@pytest.mark.cuda
+def test_3x3_kernel_refuses_an_image_too_wide_for_its_halo(cuda):
+    g = torch.zeros(1, 1, 614, 16, device=cuda, dtype=torch.bfloat16)
+    w_col = torch.zeros(9 * 16, 16, device=cuda, dtype=torch.bfloat16)
+    before = fb.fused_bwd_3x3.launches
+    with pytest.raises(ValueError, match="W <= 613"):
+        fb.fused_bwd_3x3(g, g, w_col)
+    assert fb.fused_bwd_3x3.launches == before

@@ -1,44 +1,36 @@
-// Backward-input of a ResNet bottleneck's convolutions, with the ReLU mask
-// fused in as a prologue and the residual gradient as an epilogue (bf16 in
-// and out, fp32 accumulation):
+// Backward-input of a ResNet bottleneck's 1x1 convolutions, with the ReLU
+// mask fused in as a prologue and the residual gradient as an epilogue (bf16
+// in and out, fp32 accumulation):
 //
-//     1x1:  out[p, :] = (g * mask)[p, :] @ wt  (+ skip[p, :])
-//     3x3:  out[p, :] = sum over taps t = (dy, dx) and channels c of
-//                       (g * mask)[p shifted by (dy - 1, dx - 1), c] * w_col[t * C + c, :]
-//           where a shifted pixel outside the image reads as zero (SAME, stride 1)
+//     out[p, :] = (g * mask)[p, :] @ wt  (+ skip[p, :])
 //
-// Replaces the Pallas TPU kernels of transferattack_tpu/ops/fused_bwd.py:
-// _bwd_1x1_kernel (:50) and _bwd_1x1_kernel_noskip (:56), entered through
-// fused_bwd_1x1 (:62), and _bwd_3x3_kernel (:101), entered through
-// fused_bwd_3x3 (:115).  bottleneck_bwd_input_pallas (:200) chains them.
+// Replaces the Pallas TPU kernels _bwd_1x1_kernel (:50) and
+// _bwd_1x1_kernel_noskip (:56) of transferattack_tpu/ops/fused_bwd.py,
+// entered through fused_bwd_1x1 (:62).  The 3x3 (_bwd_3x3_kernel, :101) is
+// csrc/fused_bwd_3x3.cu; bottleneck_bwd_input_pallas (:200) chains them.
 //
 // Bound: device memory.  At ResNet-50 stage 1 (batch 128, 56x56, bf16,
 // M = 401,408 pixels) at the data sheet's 3.35 TB/s:
 //     1x1 256->64          reads g and mask (2 x 205.5 MB), writes 51.4 MB:  462 MB, 0.138 ms
 //     1x1 64->256 + skip   reads 51.4 + 51.4 + 205.5 MB, writes 205.5 MB:   514 MB, 0.153 ms
-//     3x3 64->64           reads g and mask (2 x 51.4 MB), writes 51.4 MB:   154 MB, 0.046 ms
-// Their products, 13.2, 13.2 and 29.6 GFLOP, take 0.013 to 0.030 ms at the
-// 989 TFLOP/s of the bf16 tensor cores, so each is bound by the bytes.
+// Their products, 13.2 GFLOP each, take 0.013 ms at the 989 TFLOP/s of the
+// bf16 tensor cores, so each is bound by the bytes.
 //
-// Design: both are one tiled GEMM that fetches each input from device memory
-// once (the other column blocks, and the nine taps of a pixel, find it in L1
-// or L2) and writes its output once.  The mask multiply happens while a tile is
-// staged into shared memory, and the skip is added to the fp32 accumulators
-// before the one rounding to bf16, so neither the masked gradient nor an
-// unskipped sum ever goes to device memory.  The 3x3 is an implicit GEMM: its
-// reduction runs over 9 taps x C channels, and each tap's shifted tile is
-// gathered straight from g and mask, the image edge zero-filled by a
-// predicate, and no im2col copy or padded copy exists.  A block computes 128 pixels x 64 channels with
-// 8 warps of 16x16x16 bf16 tensor-core products (nvcuda::wmma); the reduction
-// steps by 32 through two shared-memory buffers, and the next step's global
-// loads are in flight in registers while the current step multiplies.  Any
-// pixel count runs (a masked tail); channel counts are multiples of 8 here
-// and of 16 in the wrapper.  TMA, wgmma, deeper pipelines and persistent
-// blocks are left for later.  On an H100 80GB HBM3 at 700 W the 1x1 runs at
-// 1.7x and 1.9x its bound and the 3x3 at 6.9x, held back by its nine gathers
-// of every pixel through L2 (PERF.md).
+// Design: one tiled GEMM that fetches each input from device memory once (the
+// other column blocks find it in L1 or L2) and writes its output once.  The
+// mask multiply happens while a tile is staged into shared memory, and the
+// skip is added to the fp32 accumulators before the one rounding to bf16, so
+// neither the masked gradient nor an unskipped sum ever goes to device memory.
+// A block computes 128 pixels x 64 channels with 8 warps of 16x16x16 bf16
+// tensor-core products (nvcuda::wmma); the reduction steps by 32 through two
+// shared-memory buffers, and the next step's global loads are in flight in
+// registers while the current step multiplies.  Any pixel count runs (a
+// masked tail); channel counts are multiples of 8 here and of 16 in the
+// wrapper.  TMA, wgmma, deeper pipelines and persistent blocks are left for
+// later.  On an H100 80GB HBM3 at 700 W the two run at 1.7x and 1.9x their
+// bound (PERF.md).
 //
-// Plain C entry points, built with nvcc into a shared library and called
+// Plain C entry point, built with nvcc into a shared library and called
 // through ctypes (transferattack_torch/ops/_build.py).
 
 #include <cuda_bf16.h>
@@ -76,13 +68,11 @@ __device__ __forceinline__ uint4 mul8(uint4 a, uint4 b) {
   return r;
 }
 
-// kTaps = 1: the 1x1 (h and wd unused); kTaps = 9: the 3x3 on (B, h, wd, c).
-// g, mask: (m, c); w: (kTaps * c, n); skip (may be null) and out: (m, n).
-template <int kTaps>
+// g, mask: (m, c); w: (c, n); skip (may be null) and out: (m, n).
 __global__ void __launch_bounds__(kThreads)
 bwd_gemm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
                 const bf16* __restrict__ w, const bf16* __restrict__ skip,
-                bf16* __restrict__ out, long m, int c, int n, int h, int wd) {
+                bf16* __restrict__ out, long m, int c, int n) {
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   bf16* a_s = reinterpret_cast<bf16*>(smem);  // [2][kATile]
   bf16* b_s = a_s + 2 * kATile;               // [2][kBTile]
@@ -93,7 +83,7 @@ bwd_gemm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
   const int n_tiles = (n + kBN - 1) / kBN;
   const long m0 = (long)(blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int k_total = kTaps * c;
+  const int k_total = c;
   const int steps = (k_total + kBK - 1) / kBK;
 
   // A staging: this thread carries 8 reduction elements (16 bytes) of tile
@@ -101,17 +91,10 @@ bwd_gemm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
   const int a_row = tid >> 2;
   const int a_col = (tid & 3) * 8;
   long pix[2];
-  int py[2], px[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const long p = m0 + a_row + 64 * i;
     pix[i] = p < m ? p : -1;
-    py[i] = px[i] = 0;
-    if constexpr (kTaps == 9) {
-      const long rem = p % ((long)h * wd);
-      py[i] = (int)(rem / wd);
-      px[i] = (int)(rem % wd);
-    }
   }
   // B staging: one 16-byte chunk of the (kBK, kBN) weight tile
   const int b_row = tid >> 3;
@@ -127,22 +110,9 @@ bwd_gemm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
     for (int i = 0; i < 2; ++i) {
       uint4 v = zero;
       if (pix[i] >= 0 && kk < k_total) {
-        long src = pix[i];
-        int ch = kk;
-        bool inside = true;
-        if constexpr (kTaps == 9) {
-          const int tap = kk / c;
-          ch = kk - tap * c;
-          const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-          const int yy = py[i] + dy, xx = px[i] + dx;
-          inside = yy >= 0 && yy < h && xx >= 0 && xx < wd;
-          src += (long)dy * wd + dx;
-        }
-        if (inside) {
-          const size_t off = (size_t)src * c + ch;
-          v = mul8(__ldg(reinterpret_cast<const uint4*>(g + off)),
-                   __ldg(reinterpret_cast<const uint4*>(mask + off)));
-        }
+        const size_t off = (size_t)pix[i] * c + kk;
+        v = mul8(__ldg(reinterpret_cast<const uint4*>(g + off)),
+                 __ldg(reinterpret_cast<const uint4*>(mask + off)));
       }
       ra[i] = v;
     }
@@ -232,31 +202,18 @@ bwd_gemm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
   }
 }
 
-template <int kTaps>
-int launch(const void* g, const void* mask, const void* w, const void* skip, void* out,
-           long m, int c, int n, int h, int wd, void* stream) {
-  if (m <= 0) return 0;
-  const long blocks = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  bwd_gemm_kernel<kTaps><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(mask),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(skip), static_cast<bf16*>(out),
-      m, c, n, h, wd);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // g, mask: (m, cout); wt: (cout, cin); skip (or null) and out: (m, cin).
 extern "C" int fused_bwd_1x1_bf16(const void* g, const void* mask, const void* wt,
                                   const void* skip, void* out, long m, int cout, int cin,
                                   void* stream) {
-  return launch<1>(g, mask, wt, skip, out, m, cout, cin, 1, 1, stream);
-}
-
-// g, mask: (b, h, w, cout); w_col: (9 * cout, cin), tap-major; out: (b, h, w, cin).
-extern "C" int fused_bwd_3x3_bf16(const void* g, const void* mask, const void* w_col,
-                                  void* out, int b, int h, int w, int cout, int cin,
-                                  void* stream) {
-  return launch<9>(g, mask, w_col, nullptr, out, (long)b * h * w, cout, cin, h, w, stream);
+  if (m <= 0) return 0;
+  const long blocks = ((m + kBM - 1) / kBM) * ((cin + kBN - 1) / kBN);
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  bwd_gemm_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(mask),
+      static_cast<const bf16*>(wt), static_cast<const bf16*>(skip), static_cast<bf16*>(out),
+      m, cout, cin);
+  return (int)cudaGetLastError();
 }

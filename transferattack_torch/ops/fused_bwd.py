@@ -10,14 +10,16 @@ forward kernels are HWIO, ``wt`` is ``(Cout, Cin)`` and ``w_col`` is
   ``fused_bwd_3x3``         dx = conv3x3_same(g · mask, W′)
   ``bottleneck_bwd_input``  the backward-input chain of one bottleneck
 
-The kernels are ``csrc/fused_bwd.cu``; the plain versions are the oracle the
-CPU tests and ``chip_smoke.py`` hold them against.  The chain has no
+The kernels are ``csrc/fused_bwd.cu`` (the 1×1) and ``csrc/fused_bwd_3x3.cu``
+(the 3×3, a library of its own); the plain versions are the oracle the CPU
+tests and ``chip_smoke.py`` hold them against.  The chain has no
 BatchNorm scales, so it equals a real block's input gradient once BN is
 folded into the convs (:func:`transferattack_torch.models.resnet.fold_bn`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping
 
 import torch
@@ -25,20 +27,48 @@ import torch.nn.functional as F
 
 from ._build import load_library
 
-_LIB = None
+# the 3×3 kernel's shared memory (csrc/fused_bwd_3x3.cu): a halo of
+# BM + 2·W + 2 rows of 144 bytes (64 bf16 channels padded to 72) and one zero
+# row, then a ring of two 64 × 64 weight tiles in the same rows; the fp32
+# epilogue tile (BM × 68 floats) reuses it
+_BM = 256
+_ROW_BYTES = 144
+_RING_BYTES = 2 * 64 * _ROW_BYTES
+_EPILOGUE_BYTES = _BM * 68 * 4
+SMEM_PER_BLOCK = 232_448  # the most a block can have on an H100
+BWD_3X3_MAX_W = 613       # the widest image whose halo fits
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = load_library("fused_bwd")
-        lib.fused_bwd_1x1_bf16.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.fused_bwd_3x3_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        lib.fused_bwd_1x1_bf16.restype = lib.fused_bwd_3x3_bf16.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+@functools.cache
+def _lib_1x1():
+    lib = load_library("fused_bwd")
+    lib.fused_bwd_1x1_bf16.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_bwd_1x1_bf16.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_3x3():
+    lib = load_library("fused_bwd_3x3")
+    lib.fused_bwd_3x3_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.fused_bwd_3x3_bf16.restype = ctypes.c_int
+    return lib
+
+
+def smem_3x3(w: int) -> int:
+    """Bytes of dynamic shared memory one block of the 3×3 kernel needs for
+    images ``w`` pixels wide: ``max((256 + 2·w + 3)·144 + 18,432, 69,632)``,
+    71,856 at w = 56.  Raises ``ValueError`` above the 232,448 bytes a block
+    can have, which is for w > 613."""
+    need = max((_BM + 2 * w + 3) * _ROW_BYTES + _RING_BYTES, _EPILOGUE_BYTES)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_bwd_3x3: an image {w} pixels wide needs {need} bytes of shared "
+            f"memory for its halo, more than the {SMEM_PER_BLOCK} a block can have "
+            f"(W <= {BWD_3X3_MAX_W})")
+    return need
 
 
 def flip_3x3_for_bwd(w):
@@ -134,7 +164,7 @@ def fused_bwd_1x1(g, mask, wt, skip=None):
     if m == 0:
         return out
     with torch.cuda.device(g.device):
-        rc = _lib().fused_bwd_1x1_bf16(
+        rc = _lib_1x1().fused_bwd_1x1_bf16(
             g.data_ptr(), mask.data_ptr(), wt.data_ptr(),
             None if skip is None else skip.data_ptr(), out.data_ptr(), m, cout, cin,
             torch.cuda.current_stream().cuda_stream)
@@ -150,12 +180,15 @@ fused_bwd_1x1.launches = 0
 def fused_bwd_3x3(g, mask, w_col):
     """conv3x3_same(g · mask, W′), the backward-input of a SAME 3×3
     stride-1 conv: g, mask (B, H, W, Cout); w_col (9·Cout, Cin) from
-    :func:`flip_3x3_for_bwd`.  Any B, H and W.
+    :func:`flip_3x3_for_bwd`.  Any B and H; W up to 613.
 
-    CUDA tensors go through the CUDA kernel (an implicit GEMM: no im2col and
-    no padded copy in device memory) under the conditions of
-    :func:`fused_bwd_1x1`; CPU tensors go through :func:`fused_bwd_3x3_plain`.
-    ``fused_bwd_3x3.launches`` counts kernel launches.
+    CUDA tensors go through the CUDA kernel (``g · mask`` staged once per
+    block as a halo tile in shared memory, the nine taps read from there: no
+    im2col and no padded copy in device memory) under the conditions of
+    :func:`fused_bwd_1x1`, and raise ``ValueError`` for an image wider than
+    613 pixels, whose halo does not fit (:func:`smem_3x3`).  CPU tensors go
+    through :func:`fused_bwd_3x3_plain`.  ``fused_bwd_3x3.launches`` counts
+    kernel launches.
     """
     tensors = [g, mask, w_col]
     if _on_cpu(tensors):
@@ -165,13 +198,14 @@ def fused_bwd_3x3(g, mask, w_col):
         raise ValueError("fused_bwd_3x3: shapes do not fit: "
                          f"{[tuple(t.shape) for t in tensors]}")
     _check_cuda("fused_bwd_3x3", tensors, (g.shape[3], w_col.shape[1]))
+    smem_3x3(g.shape[2])  # raises for an image too wide for the halo
     b, h, w, cout = g.shape
     cin = w_col.shape[1]
     out = torch.empty((b, h, w, cin), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(g.device):
-        rc = _lib().fused_bwd_3x3_bf16(
+        rc = _lib_3x3().fused_bwd_3x3_bf16(
             g.data_ptr(), mask.data_ptr(), w_col.data_ptr(), out.data_ptr(),
             b, h, w, cout, cin, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
