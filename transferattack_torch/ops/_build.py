@@ -3,9 +3,8 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface.  It is compiled by
 ``nvcc`` into ``build/transferattack_torch/<name>_<hash>.so`` at the root of
 the repository, named after a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused.  ``defines`` (``NAME=VALUE``
-strings, passed as ``-D``) build a source's variants side by side for the
-benches.  Nothing is built when the package is imported.
+source builds anew and an unchanged one is reused.  Nothing is built when
+the package is imported.
 """
 from __future__ import annotations
 
@@ -16,14 +15,14 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "transferattack_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -38,22 +37,18 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
-def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, defines: Sequence[str] = ()) -> Path:
+def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
 
     Raises ``RuntimeError`` with nvcc's output when the build fails.
     """
-    so = library_path(name, defines)
+    so = library_path(name)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,7 +58,7 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [find_nvcc(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
@@ -75,10 +70,9 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
     return so
 
 
-def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load_library(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""
-    key = (name, tuple(defines))
-    lib = _LOADED.get(key)
+    lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[key] = ctypes.CDLL(str(build(name, defines)))
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
     return lib

@@ -55,7 +55,9 @@
 // twice as fast as the gathering kernel it replaced, 1.7x one cuDNN
 // convolution) and 0.127 to 0.150 ms at stages 2-4 (PERF.md): every stage
 // runs its 29.6 GFLOP at 197 to 234 TFLOP/s, so the tap loop's rate, not the
-// halo traffic, is the limit; no build-time variant below lifted it.
+// halo traffic, is the limit.  128-pixel blocks, 64 x 64 warp tiles and an L2
+// prefetch of the next wave's halo were timed against this design and did not
+// lift it at every stage (PERF.md).
 //
 // Plain C entry point, built with nvcc into a shared library of its own and
 // called through ctypes (transferattack_torch/ops/_build.py).
@@ -68,28 +70,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Build-time variants, timed against each other by
-// transferattack_torch/scripts/bench_fused_bwd_3x3.py (PERF.md); the
-// defaults are the shipped kernel.
-#ifndef FB3X3_BM
-#define FB3X3_BM 256       // pixels per block, a multiple of 64
-#endif
-#ifndef FB3X3_WARP_N
-#define FB3X3_WARP_N 32    // output channels per warp: 32 or 64
-#endif
-#ifndef FB3X3_PREFETCH
-#define FB3X3_PREFETCH 0   // 1: prefetch into L2 the halo of the block one wave ahead
-#endif
-
-constexpr int kBM = FB3X3_BM;               // flattened pixels per block
+constexpr int kBM = 256;                    // flattened pixels per block
 constexpr int kBN = 64;                     // output channels per block
 constexpr int kBK = 64;                     // reduction channels per chunk
 constexpr int kStages = 2;                  // weight ring depth
-constexpr int kWN = FB3X3_WARP_N;           // a warp's tile: 64 pixels x kWN channels
+constexpr int kWN = 32;                     // a warp's tile: 64 pixels x kWN channels
 constexpr int kWarpsM = kBM / 64;
-constexpr int kWarpsN = kBN / kWN;
-constexpr int kThreads = kWarpsM * kWarpsN * 32;
-static_assert(kBM % 64 == 0 && (kWN == 32 || kWN == 64), "variant");
+constexpr int kThreads = kWarpsM * (kBN / kWN) * 32;  // 8 warps
 constexpr int kRow = kBK + 8;               // halo and ring row, in elements
 constexpr int kRowBytes = kRow * 2;         // 144
 constexpr int kRingBytes = kStages * kBK * kRowBytes;
@@ -105,9 +92,8 @@ __host__ __device__ constexpr long smem_bytes(int wd) {
              ? (long)(halo_rows(wd) + 1) * kRowBytes + kRingBytes
              : kEpilogueBytes;
 }
-static_assert(kBM != 256 || smem_bytes(56) == 71856, "the halo at stage 1");
-static_assert(kBM != 256 || (smem_bytes(613) <= kMaxSmem && smem_bytes(614) > kMaxSmem),
-              "W <= 613");
+static_assert(smem_bytes(56) == 71856, "the halo at stage 1");
+static_assert(smem_bytes(613) <= kMaxSmem && smem_bytes(614) > kMaxSmem, "W <= 613");
 
 __device__ __forceinline__ uint4 mul8(uint4 a, uint4 b) {
   // eight bf16 products, each rounded once, as torch and jnp multiply bf16
@@ -151,10 +137,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "r"(addr));
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -165,11 +147,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // g, mask: (m, c) = (B, h, wd, c) flattened; w: (9 c, n); out: (m, n).
-// ahead: how many blocks are resident at once (the prefetch variant's reach).
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_3x3_halo_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
                     const bf16* __restrict__ w, bf16* __restrict__ out, long m, int c, int n,
-                    int h, int wd, int ahead) {
+                    int h, int wd) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int rows = halo_rows(wd);
   bf16* halo = reinterpret_cast<bf16*>(smem);           // [rows + 1][kRow], last row zero
@@ -277,22 +258,6 @@ bwd_3x3_halo_kernel(const bf16* __restrict__ g, const bf16* __restrict__ mask,
         }
       }
     }
-    if (FB3X3_PREFETCH && k0 == 0) {
-      // the block that starts one wave later finds its halo, all channels,
-      // in L2 (its first column block asks for it)
-      const long nb = (long)blockIdx.x + ahead;
-      if (ahead > 0 && nb < (long)gridDim.x && nb % n_tiles == 0) {
-        const long q0 = (nb / n_tiles) * kBM;
-        const long lo = max(q0 - wd - 1, 0L), hi = min(q0 + kBM + wd + 1, m);
-        const long bytes = (hi - lo) * c * 2;
-        const char* gb = reinterpret_cast<const char*>(g + lo * c);
-        const char* mb = reinterpret_cast<const char*>(mask + lo * c);
-        for (long off = tid * 128L; off < bytes; off += kThreads * 128L) {
-          prefetch_l2(gb + off);
-          prefetch_l2(mb + off);
-        }
-      }
-    }
 
     for (int t = 0; t < 9; ++t) {
       const int s = (k0 / kBK) * 9 + t;
@@ -377,20 +342,8 @@ extern "C" int fused_bwd_3x3_bf16(const void* g, const void* mask, const void* w
   cudaError_t err = cudaFuncSetAttribute(
       bwd_3x3_halo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int ahead = 0;
-  if (FB3X3_PREFETCH) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_3x3_halo_kernel,
-                                                             kThreads, (size_t)smem)) !=
-            cudaSuccess)
-      return (int)err;
-    ahead = sms * per_sm;
-  }
   bwd_3x3_halo_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(g), static_cast<const bf16*>(mask),
-      static_cast<const bf16*>(w_col), static_cast<bf16*>(out), m, cout, cin, h, w, ahead);
+      static_cast<const bf16*>(w_col), static_cast<bf16*>(out), m, cout, cin, h, w);
   return (int)cudaGetLastError();
 }
