@@ -17,10 +17,12 @@ random weights.  Phases:
 5. main path: bounds, a loss that rose, exactly 10 kernel launches per call,
    white-box ASR and images per second;
 6. kernels 2-3: the fused backward-input kernels ``fused_bwd_1x1`` (with and
-   without skip) and ``fused_bwd_3x3``, bf16, within one bf16 rounding of
-   their plain versions: the 1×1 at ResNet-50 stage-1 shapes (batch 128, 56²)
-   and at ragged and stage-4 shapes, the 3×3 at the stride-1 3×3 shapes of
-   stages 1-4 (batch 128) and at shapes whose blocks cross images, with a
+   without skip, and with ``g · mask`` as a second output, which must be bit
+   for bit ``g * mask``) and ``fused_bwd_3x3``, bf16, within one bf16 rounding
+   of their plain versions: the 1×1 at ResNet-50 stage-1 shapes (batch 128,
+   56²) and at ragged, partial-k, partial-N and stage-4 shapes, each with
+   its tiling printed, the 3×3 at the stride-1 3×3 shapes of stages 1-4
+   (batch 128) and at shapes whose blocks cross images, with a
    partial chunk and N block, and wider than a block; kernel, plain and
    library call timed at the stage shapes; an image too wide for the 3×3's
    halo raises;
@@ -212,34 +214,53 @@ def main() -> None:
 
     b, h, w = STAGE1
     m1 = b * h * w
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ragged = 128 * 133 + 5  # 134 and 268 tiles: not a multiple of the grid
     cases_1x1 = []
-    for m, cout, cin, skip in ((m1, 256, 64, False), (m1, 64, 256, True),
-                               (1031, 256, 64, False), (1031, 64, 256, True),
-                               (98, 2048, 512, False), (98, 512, 2048, True)):
+    # (M, Cout, Cin, skip, g·mask out); at stage 1 the chain's first launch is
+    # 256 -> 64 with g·mask out, its last 64 -> 256 with the skip
+    for m, cout, cin, skip, with_gm in (
+            (m1, 256, 64, False, False), (m1, 256, 64, False, True), (m1, 64, 256, True, False),
+            (1031, 256, 64, False, True), (1031, 64, 256, True, False),
+            (ragged, 256, 64, False, True), (ragged, 64, 256, True, True),
+            (1031, 48, 64, True, True), (1031, 64, 80, True, False),  # partial k-step, N tile
+            (98, 2048, 512, False, False), (98, 512, 2048, True, True)):
         args = (randn((m, cout)), relu_mask((m, cout)), randn((cout, cin), 0.05),
                 randn((m, cin)) if skip else None)
-        out = fb.fused_bwd_1x1(*args)
+        label = (f"fused_bwd_1x1 ({m}, {cout}) -> {cin}{' + skip' if skip else ''}"
+                 f"{' + gm_out' if with_gm else ''}")
+        if with_gm:
+            out, gm = fb.fused_bwd_1x1(*args, return_gm=True)
+            check(torch.equal(gm, args[0] * args[1]), f"{label}: gm_out is not g * mask")
+        else:
+            out = fb.fused_bwd_1x1(*args)
         err, rel = errors(out, fb.fused_bwd_1x1_plain(*args))
-        label = f"fused_bwd_1x1 ({m}, {cout}) -> {cin}{' + skip' if skip else ''}"
         check(rel <= BWD_TOL, f"{label}: max|out-ref|/max|ref| = {rel}")
+        plan = fb.plan_1x1(m, cout, cin, skip)
         print(f"[6 kernels] {label}: max|out-ref|/max|ref| = {rel:.3e} "
-              f"(bound {BWD_TOL:g})")
+              f"(bound {BWD_TOL:g}){'; gm_out bit-exact with g * mask' if with_gm else ''}; "
+              f"plan BN {plan.bn}, {plan.stages} stages of {plan.stage_bytes} B, "
+              f"{plan.smem} B shared memory, grid {min(plan.tiles, sms)} blocks over "
+              f"{plan.tiles} tiles")
         if m == m1:
             g, mk, wt, sk = args
-            work = (nbytes(*args, out), 2 * m * cout * cin)
+            work = (nbytes(*args, out, gm if with_gm else None), 2 * m * cout * cin)
             case = {
                 "shape": label, "replaces": f"{FUSED_BWD}:{50 if skip else 56}",
-                "bytes": work[0], "flops": work[1],
+                "in_chain": skip or with_gm, "bytes": work[0], "flops": work[1],
+                "plan": {**plan._asdict(), "grid": min(plan.tiles, sms)},
                 "max_abs_err": err, "max_rel_err": rel,
-                "ms": median_ms(lambda: fb.fused_bwd_1x1(g, mk, wt, sk)),
-                "plain_ms": median_ms(lambda: fb.fused_bwd_1x1_plain(g, mk, wt, sk)),
+                "ms": median_ms(lambda: fb.fused_bwd_1x1(g, mk, wt, sk, return_gm=with_gm)),
+                "plain_ms": median_ms(
+                    lambda: fb.fused_bwd_1x1_plain(g, mk, wt, sk, return_gm=with_gm)),
                 "library_ms": median_ms(lambda: torch.matmul(g, wt)),
                 **dict(zip(("bound_ms", "bound_by"), bound_ms(*work))),
             }
             cases_1x1.append(case)
             print(f"[6 kernels] {label}: kernel {case['ms']:.4f} ms, plain "
-                  f"{case['plain_ms']:.4f} ms, torch.matmul {case['library_ms']:.4f} ms, "
-                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) on {smi}")
+                  f"{case['plain_ms']:.4f} ms, torch.matmul(g, wt) {case['library_ms']:.4f} ms "
+                  f"(reads neither mask nor skip: not the same function), bound "
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']}) on {smi}")
         del args, out
     cases_3x3, err_3x3 = [], 0.0
     for shape, cin in STAGES_3X3 + EDGES_3X3:
@@ -344,9 +365,11 @@ def main() -> None:
           f"once), floor of the JAX bench's byte count {jax_floor:.4f} ms, on {smi}")
 
     # the 1x1 row: the two launches of one chain call together
-    row_1x1 = {k: sum(c[k] for c in cases_1x1) for k in ("ms", "plain_ms", "library_ms")}
+    in_chain = [c for c in cases_1x1 if c["in_chain"]]
+    row_1x1 = {k: sum(c[k] for c in in_chain) for k in ("ms", "plain_ms", "library_ms")}
     row_1x1["bound_ms"], row_1x1["bound_by"] = bound_ms(
-        sum(c["bytes"] for c in cases_1x1), sum(c["flops"] for c in cases_1x1))
+        sum(c["bytes"] for c in in_chain), sum(c["flops"] for c in in_chain))
+    row_1x1["library"] = "torch.matmul(g, wt): reads neither mask nor skip, not the same function"
     print(json.dumps({"kernels": [
         {"name": "fused_sign_update", "route": "cuda",
          "source": "transferattack_torch/ops/csrc/fused_update.cu",

@@ -76,6 +76,41 @@ def test_plain_1x1_matches_jax(m, cout, cin, skip):
         np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("m,cout,cin,skip", [(1000, 256, 64, False), (200, 64, 256, True)],
+                         ids=["256to64", "64to256_skip"])
+def test_plain_1x1_return_gm_matches_jax(m, cout, cin, skip):
+    """``return_gm`` hands back JAX's ``g * mask`` beside an ``out`` that
+    still matches JAX's kernel in interpret mode."""
+    import jax.numpy as jnp
+    from transferattack_tpu.ops import fused_bwd as jfb
+
+    args = _1x1_inputs(m, cout, cin, skip, seed=10)
+    out, gm = fb.fused_bwd_1x1_plain(*_torch(args), return_gm=True)
+    jargs = [_jax(a) for a in args]
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(jnp.multiply(jargs[0], jargs[1])))
+    ref = jfb.fused_bwd_1x1(*jargs[:3], skip=jargs[3], interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_plan_1x1_fits_every_channel_count():
+    """Every Cout and Cin that are multiples of 16 up to 2048, with and
+    without a skip, fit a block's shared memory with at least two stages;
+    BN is 64 exactly when Cin ≤ 64; the chain's two launches get the plans
+    ``csrc/fused_bwd.cu`` pins."""
+    for cout in range(16, 2049, 16):
+        for cin in range(16, 2049, 16):
+            for skip in (False, True):
+                plan = fb.plan_1x1(401_408, cout, cin, skip)
+                assert plan.stages >= 2 and plan.smem <= fb.SMEM_PER_BLOCK
+                assert plan.smem == plan.stages * plan.stage_bytes
+                assert (plan.bn == 64) == (cin <= 64)
+    assert fb.plan_1x1(401_408, 256, 64, False) == (64, 46_080, 4, 184_320, 3136)
+    assert fb.plan_1x1(401_408, 64, 256, True) == (128, 87_040, 2, 174_080, 6272)
+    assert fb.plan_1x1(128 * 133 + 5, 64, 80, True).tiles == 134 * 1
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fb.plan_1x1(8, 24, 64, False)
+
+
 @pytest.mark.parametrize("shape,cin", [
     ((2, 16, 16, 64), 64),
     ((3, 13, 17, 64), 64),   # the kernel's 256-pixel blocks cross images
@@ -210,6 +245,18 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
     assert (fb.fused_bwd_1x1.launches, fb.fused_bwd_3x3.launches) == before
 
 
+def test_1x1_wrapper_return_gm_on_cpu_runs_plain_without_launching():
+    before = fb.fused_bwd_1x1.launches
+    for skip in (False, True):
+        a = _torch(_1x1_inputs(40, 32, 16, skip, seed=11))
+        out, gm = fb.fused_bwd_1x1(*a, return_gm=True)
+        ref_out, ref_gm = fb.fused_bwd_1x1_plain(*a, return_gm=True)
+        assert torch.equal(out, ref_out) and torch.equal(gm, ref_gm)
+        assert torch.equal(gm, a[0] * a[1])
+        assert torch.equal(out, fb.fused_bwd_1x1(*a))
+    assert fb.fused_bwd_1x1.launches == before
+
+
 def test_wrappers_refuse_tensors_off_the_cpu_that_are_not_cuda():
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -246,15 +293,24 @@ def _rel_err(out, ref):
 @pytest.mark.parametrize("m,cout,cin,skip", [
     (8192, 256, 64, False), (8192, 64, 256, True), (1031, 256, 64, False),
     (1031, 64, 256, True), (1, 16, 16, True), (98, 2048, 512, False), (98, 512, 2048, True),
+    # a tile count that is not a multiple of the grid (134 and 268 tiles)
+    (128 * 133 + 5, 256, 64, False), (128 * 133 + 5, 64, 256, True),
+    # a partial k-step (Cout 48) and a partial BN = 128 tile (Cin 80)
+    (1000, 48, 64, True), (1000, 64, 80, True), (1000, 48, 80, False),
 ])
 def test_1x1_kernel_matches_plain(cuda, m, cout, cin, skip):
+    """Within one bf16 rounding of the plain version, with and without the
+    second output, which is bit for bit ``g * mask``."""
     args = _torch(_1x1_inputs(m, cout, cin, skip, seed=7), cuda, torch.bfloat16)
     before = fb.fused_bwd_1x1.launches
     out = fb.fused_bwd_1x1(*args)
+    out_gm, gm = fb.fused_bwd_1x1(*args, return_gm=True)
     torch.cuda.synchronize()
-    assert fb.fused_bwd_1x1.launches == before + 1
+    assert fb.fused_bwd_1x1.launches == before + 2
     assert out.shape == (m, cin) and out.dtype == torch.bfloat16
     assert _rel_err(out, fb.fused_bwd_1x1_plain(*args)) <= BF16_TOL
+    assert torch.equal(out_gm, out)
+    assert torch.equal(gm, args[0] * args[1])
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,11 +38,44 @@ _EPILOGUE_BYTES = _BM * 68 * 4
 SMEM_PER_BLOCK = 232_448  # the most a block can have on an H100
 BWD_3X3_MAX_W = 613       # the widest image whose halo fits
 
+# the 1×1 kernel's tiles and ring (csrc/fused_bwd.cu): 128 pixels × BN
+# output channels a tile, 64 reduction channels a step, and a ring of as many
+# stages as fit in 200 KB
+_1X1_BM, _1X1_BK = 128, 64
+_1X1_STAGE_BUDGET = 200 * 1024
+
+
+class Plan1x1(NamedTuple):
+    bn: int           # output channels a tile: 64 when cin ≤ 64, else 128
+    stage_bytes: int  # g, mask, the weight chunk and, with a skip, the skip tile
+    stages: int       # the cp.async ring's depth
+    smem: int         # dynamic shared memory a block
+    tiles: int        # 128-pixel × BN tiles; the grid is min(tiles, SMs)
+
+
+def plan_1x1(m: int, cout: int, cin: int, skip: bool) -> Plan1x1:
+    """The 1×1 kernel's tiling for ``(m, cout) @ (cout, cin)`` with or
+    without a skip, as ``csrc/fused_bwd.cu`` pins it: a stage holds the g
+    and mask chunks (128 rows of 144 bytes each), the weight chunk (64 rows
+    of BN + 8 channels) and, with a skip, the 128 × BN skip tile; the ring
+    has ``⌊200 KB / stage⌋`` stages, at least 2.  At the chain's shapes:
+    4 stages of 46,080 bytes for 256 → 64, 2 of 87,040 for 64 → 256 with
+    the skip.  ``cout`` only has to be a positive multiple of 16."""
+    if cout <= 0 or cout % 16 or cin <= 0 or cin % 16:
+        raise ValueError(f"plan_1x1: channel counts must be multiples of 16, got "
+                         f"{cout}, {cin}")
+    bn = 64 if cin <= 64 else 128
+    stage = (2 * _1X1_BM * (_1X1_BK + 8) * 2 + _1X1_BK * (bn + 8) * 2
+             + (_1X1_BM * bn * 2 if skip else 0))
+    stages = max(2, _1X1_STAGE_BUDGET // stage)
+    tiles = -(-m // _1X1_BM) * -(-cin // bn)
+    return Plan1x1(bn, stage, stages, stages * stage, tiles)
+
 
 @functools.cache
 def _lib_1x1():
     lib = load_library("fused_bwd")
-    lib.fused_bwd_1x1_bf16.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.fused_bwd_1x1_bf16.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.fused_bwd_1x1_bf16.restype = ctypes.c_int
     return lib
@@ -82,12 +115,14 @@ def flip_3x3_for_bwd(w):
 # bottleneck_bwd_input_jnp)
 # ---------------------------------------------------------------------------
 
-def fused_bwd_1x1_plain(g, mask, wt, skip=None):
+def fused_bwd_1x1_plain(g, mask, wt, skip=None, *, return_gm=False):
     """(g · mask) @ wt (+ skip) in torch ops.  ``addmm`` hands the skip to the
     GEMM as its C operand, so on the card cuBLAS adds it to the fp32
-    accumulator before the one rounding to ``g.dtype``, as JAX does."""
+    accumulator before the one rounding to ``g.dtype``, as JAX does.  With
+    ``return_gm``, ``(out, g · mask)``, as :func:`fused_bwd_1x1`."""
     gm = g * mask
-    return gm @ wt if skip is None else torch.addmm(skip, gm, wt)
+    out = gm @ wt if skip is None else torch.addmm(skip, gm, wt)
+    return (out, gm) if return_gm else out
 
 
 def fused_bwd_3x3_plain(g, mask, w_col):
@@ -141,18 +176,22 @@ def _check_cuda(name: str, tensors, channels) -> None:
                          f"{list(channels)}")
 
 
-def fused_bwd_1x1(g, mask, wt, skip=None):
+def fused_bwd_1x1(g, mask, wt, skip=None, *, return_gm=False):
     """(g · mask) @ wt (+ skip) in one pass: g, mask (M, Cout); wt (Cout, Cin);
-    skip, optional, (M, Cin).  Any M.
+    skip, optional, (M, Cin).  Any M.  With ``return_gm``, ``(out, g · mask)``:
+    the kernel writes the masked gradient it stages anyway as a second
+    output, bit for bit ``g * mask``.  JAX's ``fused_bwd_1x1`` has no such
+    output; :func:`bottleneck_bwd_input` takes it as the chain's skip.
 
-    CUDA tensors go through the CUDA kernel: bf16, contiguous, 16-byte
-    aligned, channel counts multiples of 16, or this raises ``ValueError``.
-    CPU tensors go through :func:`fused_bwd_1x1_plain`.
-    ``fused_bwd_1x1.launches`` counts kernel launches.
+    CUDA tensors go through the CUDA kernel (:func:`plan_1x1`): bf16,
+    contiguous, 16-byte aligned, channel counts multiples of 16, or this
+    raises ``ValueError``.  CPU tensors go through
+    :func:`fused_bwd_1x1_plain`.  ``fused_bwd_1x1.launches`` counts kernel
+    launches, one a call.
     """
     tensors = [g, mask, wt] + ([] if skip is None else [skip])
     if _on_cpu(tensors):
-        return fused_bwd_1x1_plain(g, mask, wt, skip)
+        return fused_bwd_1x1_plain(g, mask, wt, skip, return_gm=return_gm)
     if (g.dim() != 2 or wt.dim() != 2 or mask.shape != g.shape or wt.shape[0] != g.shape[1]
             or (skip is not None and skip.shape != (g.shape[0], wt.shape[1]))):
         raise ValueError("fused_bwd_1x1: shapes do not fit: "
@@ -161,17 +200,18 @@ def fused_bwd_1x1(g, mask, wt, skip=None):
     m, cout = g.shape
     cin = wt.shape[1]
     out = torch.empty((m, cin), dtype=g.dtype, device=g.device)
-    if m == 0:
-        return out
-    with torch.cuda.device(g.device):
-        rc = _lib_1x1().fused_bwd_1x1_bf16(
-            g.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-            None if skip is None else skip.data_ptr(), out.data_ptr(), m, cout, cin,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_bwd_1x1: CUDA error {rc} at launch")
-    fused_bwd_1x1.launches += 1
-    return out
+    gm = torch.empty_like(g) if return_gm else None
+    if m > 0:
+        with torch.cuda.device(g.device):
+            rc = _lib_1x1().fused_bwd_1x1_bf16(
+                g.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+                None if skip is None else skip.data_ptr(),
+                None if gm is None else gm.data_ptr(), out.data_ptr(), m, cout, cin,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_bwd_1x1: CUDA error {rc} at launch")
+        fused_bwd_1x1.launches += 1
+    return (out, gm) if return_gm else out
 
 
 fused_bwd_1x1.launches = 0
@@ -218,10 +258,11 @@ fused_bwd_3x3.launches = 0
 
 
 def bottleneck_bwd_input(g, masks: Mapping, weights: Mapping):
-    """The chain of :func:`bottleneck_bwd_input_plain` in three launches:
-    1×1ᵀ with the output mask, 3×3ᵀ with the ``c2`` mask, and 1×1ᵀ with the
-    ``c1`` mask plus the skip ``g · mask_out``, which is computed outside
-    the kernels as in JAX.  CPU tensors take the plain chain."""
+    """The chain of :func:`bottleneck_bwd_input_plain` in three launches and
+    no pass of its own over the activations: 1×1ᵀ with the output mask, which
+    also writes ``g · mask_out``; 3×3ᵀ with the ``c2`` mask; and 1×1ᵀ with the
+    ``c1`` mask plus that ``g · mask_out`` as the skip (JAX computes it
+    outside its kernels).  CPU tensors take the plain chain."""
     if _on_cpu([g, *masks.values(), *weights.values()]):
         return bottleneck_bwd_input_plain(g, masks, weights)
     if not all(t.is_contiguous() for t in (g, *masks.values())):
@@ -230,8 +271,9 @@ def bottleneck_bwd_input(g, masks: Mapping, weights: Mapping):
     m = b * h * w
     flat_g = g.view(m, c4)
     mask_out = masks["out"].view(m, c4)
-    d2 = fused_bwd_1x1(flat_g, mask_out, weights["w3"][0, 0].T.contiguous())
+    d2, gm_out = fused_bwd_1x1(flat_g, mask_out, weights["w3"][0, 0].T.contiguous(),
+                               return_gm=True)
     d1 = fused_bwd_3x3(d2.view(b, h, w, -1), masks["c2"], flip_3x3_for_bwd(weights["w2"]))
     dx = fused_bwd_1x1(d1.view(m, -1), masks["c1"].view(m, -1),
-                       weights["w1"][0, 0].T.contiguous(), skip=flat_g * mask_out)
+                       weights["w1"][0, 0].T.contiguous(), skip=gm_out)
     return dx.view(b, h, w, -1)

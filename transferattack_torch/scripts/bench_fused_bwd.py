@@ -5,9 +5,12 @@ Counterpart of ``scripts/bench_fused_bwd.py``: ResNet-50 stage-1 shapes
 (56², 256/64/64 channels) at batch 128, bfloat16, from the same numpy
 ``RandomState(0)`` draws.  One JSON line per case: the chain's equality
 (kernels against plain), then the chain, the isolated 3×3 and the isolated
-1×1 (256 → 64), each ``plain`` and ``cuda``, then a summary with the floor
-of the chain's bytes at the H100's 3.35 TB/s and the card's name and power
-limit.  Times are medians of 20 bursts of 10 calls, by CUDA events.
+1×1 (256 → 64; then the chain's two 1×1 launches, 256 → 64 with ``g·mask``
+as a second output and 64 → 256 with the skip), each ``plain`` and
+``cuda``, and the elementwise ``g·mask`` pass the chain no longer makes;
+then a summary with the floor of the chain's bytes at the H100's 3.35 TB/s
+and the card's name and power limit.  Times are medians of 20 bursts of 10
+calls, by CUDA events.
 
     python -m transferattack_torch.scripts.bench_fused_bwd [--batch 128]
 """
@@ -84,6 +87,18 @@ def main() -> None:
     wt = weights["w3"][0, 0].T.contiguous()
     bench(lambda: fb.fused_bwd_1x1_plain(flat_g, flat_m, wt), "1x1/plain")
     bench(lambda: fb.fused_bwd_1x1(flat_g, flat_m, wt), "1x1/cuda")
+    # the chain's two 1x1 launches: the first also writes g·mask, the last
+    # (conv1 backward: 64 -> 256) takes it as the skip
+    bench(lambda: fb.fused_bwd_1x1_plain(flat_g, flat_m, wt, return_gm=True), "1x1_gm/plain")
+    bench(lambda: fb.fused_bwd_1x1(flat_g, flat_m, wt, return_gm=True), "1x1_gm/cuda")
+    d1 = d2.view(b * h * w, 64)
+    flat_c1 = masks["c1"].view(b * h * w, 64)
+    w1t = weights["w1"][0, 0].T.contiguous()
+    skip = flat_g * flat_m
+    # the pass the chain no longer makes (411 MB in, 205 MB out)
+    bench(lambda: torch.mul(flat_g, flat_m, out=skip), "gm_pass/plain")
+    bench(lambda: fb.fused_bwd_1x1_plain(d1, flat_c1, w1t, skip), "1x1_skip/plain")
+    bench(lambda: fb.fused_bwd_1x1(d1, flat_c1, w1t, skip), "1x1_skip/cuda")
 
     bytes_chain = 2 * (b * h * w * (256 * 3 + 64 * 3 + 256))  # bf16 in+out
     print(json.dumps({
