@@ -28,15 +28,36 @@ random weights.  Phases:
    halo raises;
 7. chain: ``bottleneck_bwd_input`` on a BN-folded ``Bottleneck(256, 64)``
    at batch 128, 56², bf16, against the plain chain and against autograd
-   of the block, with exactly 2 + 1 launches per call, and timed.
+   of the block, with exactly 2 + 1 launches per call, and timed;
+8. eval models: each of the eight paper eval models at full width, 2
+   images, fp32 with TF32 off on the card and on the CPU, each held
+   against a CPU fp64 copy of the model: the card's logits no further from
+   fp64 than the CPU's, plus ``1e-3·max|ref|`` (the card-vs-CPU distance
+   is printed beside them);
+9. the CLI (``transferattack_torch.main``) in a temporary working
+   directory: it writes 64 seeded 299² PNGs, labelled with the ResNet-50
+   surrogate's own predictions; the attack (MI-FGSM, ResNet-50, bf16,
+   batch 32) must write 64 PNGs at 224², each within 16 levels of its
+   clean image, with exactly 20 update-kernel launches, once cold and once
+   more warm (the cuDNN plans for batch 32 chosen); ``--eval`` over the
+   eight models must print eight ``{model}: {asr:.1f}`` lines with a
+   white-box ResNet-50 ASR of at least 90; and the PNG decode is timed
+   (``scripts/bench_png.py``);
+10. bench: the line of ``python -m transferattack_torch.bench``.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
+import os
+import re
 import statistics
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -46,8 +67,10 @@ import torch
 import torch.nn.functional as F
 
 import transferattack_torch as tt
+from transferattack_torch import bench
+from transferattack_torch import main as cli
 from transferattack_torch.attack import softmax_cross_entropy
-from transferattack_torch.models import init_weights
+from transferattack_torch.models import init_weights, make_model
 from transferattack_torch.models.resnet import Bottleneck, fold_bn
 from transferattack_torch.ops import _build
 from transferattack_torch.ops import fused_bwd as fb
@@ -55,6 +78,9 @@ from transferattack_torch.ops.fused_update import (
     fused_sign_update,
     fused_sign_update_plain,
 )
+from transferattack_torch.scripts.bench_png import decode_ms
+from transferattack_torch.utils import cnn_model_paper, vit_model_paper
+from transferattack_torch.utils.data import load_image, save_images
 from transferattack_torch.utils.timing import bound_ms, card, median_ms
 
 REPO = Path(__file__).resolve().parent
@@ -64,6 +90,10 @@ MAIN_SHAPE = (128, 224, 224, 3)
 STAGE1 = (128, 56, 56)  # ResNet-50 stage 1 at batch 128
 BWD_TOL = 1e-2    # max|out - ref| / max|ref|: one bf16 rounding
 CHAIN_TOL = 2e-2  # three roundings, in another order than cuBLAS/cuDNN/autograd
+# fp32 logits: how much further from fp64 the card may be than the CPU is
+EVAL_TOL = 1e-3
+EVAL_MODELS = cnn_model_paper + vit_model_paper
+CLI_IMAGES, CLI_BATCH = 64, 32
 FUSED_BWD = "transferattack_tpu/ops/fused_bwd.py"
 FUSED_BWD_CU = "transferattack_torch/ops/csrc/fused_bwd.cu"
 FUSED_BWD_3X3_CU = "transferattack_torch/ops/csrc/fused_bwd_3x3.cu"
@@ -92,14 +122,69 @@ def update_inputs(shape, gen, dev):
 
 
 def errors(out, ref):
-    """max|out - ref| and its ratio to max|ref|, in fp32."""
-    ref = ref.float()
-    err = float((out.float() - ref).abs().max())
+    """max|out - ref| and its ratio to max|ref|, in fp64."""
+    ref = ref.double()
+    err = float((out.double() - ref).abs().max())
     return err, err / (float(ref.abs().max()) or 1.0)
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def run_cli(work: str):
+    """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
+    attack, then the eval.  Returns the update-kernel launches of the
+    attack's first run."""
+    data, adv = os.path.join(work, "data"), os.path.join(work, "adv")
+    rng = np.random.RandomState(9)
+    names = [f"img_{i:04d}.png" for i in range(CLI_IMAGES)]
+    save_images(os.path.join(data, "images"),
+                rng.rand(CLI_IMAGES, 299, 299, 3).astype(np.float32), names)
+    # the labels: the surrogate's own predictions (1-indexed) on the images
+    # as the attack sees them, resized to 224²
+    clean = np.stack([load_image(os.path.join(data, "images", n)) for n in names])
+    surrogate = make_model("resnet50", device="cuda")
+    with torch.inference_mode():
+        pred = surrogate.apply(torch.from_numpy(clean).cuda()).argmax(-1).cpu().numpy()
+    del surrogate
+    with open(os.path.join(data, "labels.csv"), "w") as f:
+        f.write("filename,label\n" + "".join(f"{n},{p + 1}\n" for n, p in zip(names, pred)))
+
+    # the attack cold, then once more warm: the second run's rate is free
+    # of the first calls at batch 32 (cuDNN's choice of plans, the
+    # allocator's growth)
+    for run, out_dir in (("cold", adv), ("warm", adv + "_warm")):
+        print(f"[9 cli] attack, {run}:")
+        fused_sign_update.launches = 0
+        cli.main(["--attack", "mifgsm", "--model", "resnet50", "--bf16", "--batchsize",
+                  str(CLI_BATCH), "--input_dir", data, "--output_dir", out_dir])
+        torch.cuda.synchronize()
+        launches = fused_sign_update.launches
+        check(launches == 2 * 10, f"the CLI launched the update kernel {launches} "
+              f"times in its {run} run, expected 20 (2 batches of 10 iterations)")
+        written = sorted(n for n in os.listdir(out_dir) if n.endswith(".png"))
+        check(written == names, f"the CLI wrote {len(written)} PNGs, expected {CLI_IMAGES}")
+        worst = 0.0
+        for i, n in enumerate(names):
+            img = load_image(os.path.join(out_dir, n))
+            check(img.shape == (224, 224, 3), f"{n}: shape {img.shape}")
+            worst = max(worst, float(np.abs(np.round(img * 255)
+                                            - np.round(clean[i] * 255)).max()))
+        check(worst <= 16, f"an adversarial PNG is {worst} levels from its clean image")
+        print(f"[9 cli] {run}: {CLI_IMAGES} PNGs at 224², at most {worst:.0f} levels "
+              f"from their clean images (eps 16/255); {launches} update-kernel launches")
+
+    out = io.StringIO()  # the eval's lines, printed and parsed
+    with contextlib.redirect_stdout(out):
+        cli.main(["--eval", "--batchsize", str(CLI_BATCH), "--input_dir", data,
+                  "--output_dir", adv])
+    print(out.getvalue(), end="")
+    asr = dict(re.findall(r"^(\S+): (\d+\.\d)$", out.getvalue(), re.M))
+    check(list(asr) == EVAL_MODELS, f"eval lines for {list(asr)}, expected {EVAL_MODELS}")
+    check(float(asr["resnet50"]) >= 90, f"white-box ResNet-50 ASR {asr['resnet50']} < 90")
+    check(os.path.exists(os.path.join(work, "results_eval.txt")), "no results_eval.txt")
+    return launches
 
 
 def main() -> None:
@@ -364,6 +449,56 @@ def main() -> None:
           f"bound {chain['bound_ms']:.4f} ms ({chain['bound_by']}; inputs and output "
           f"once), floor of the JAX bench's byte count {jax_floor:.4f} ms, on {smi}")
 
+
+    # 8. the eval models at full width: the card and the CPU in fp32, each
+    # against the same model in fp64 on the CPU.  A random init can be ill
+    # conditioned in fp32 (Visformer's BatchNorms, with identity statistics,
+    # normalise nothing), so the card is held to the CPU's distance from
+    # fp64, not to the CPU's logits
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    x8 = torch.from_numpy(np.random.RandomState(8).rand(2, 224, 224, 3).astype(np.float32))
+    for model_name in EVAL_MODELS:
+        ref_model = make_model(model_name, pretrained=False, device="cpu")
+        exact = copy.deepcopy(ref_model.module).double()
+        on_card = copy.deepcopy(ref_model.module).to(dev)
+        with torch.inference_mode():
+            ref64 = exact(x8.double())
+            ref = ref_model.module(x8)
+            out = on_card(x8.to(dev)).cpu()
+        check(tuple(out.shape) == (2, 1000) and bool(torch.isfinite(out).all()),
+              f"{model_name}: logits of shape {tuple(out.shape)} or not finite")
+        card64, cpu64, card_cpu = (errors(out, ref64)[1], errors(ref, ref64)[1],
+                                   errors(out, ref)[1])
+        check(card64 <= cpu64 + EVAL_TOL, f"{model_name}: card fp32 vs fp64 "
+              f"max|d|/max|ref| = {card64}, CPU fp32 vs fp64 {cpu64}")
+        print(f"[8 eval models] {model_name} at {ref_model.input_size}², logits "
+              f"max|d|/max|ref|: card fp32 vs fp64 {card64:.3e}, CPU fp32 vs fp64 "
+              f"{cpu64:.3e} (the card's bound: that + {EVAL_TOL:g}), card vs CPU "
+              f"{card_cpu:.3e}")
+        del ref_model, exact, on_card
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # 9. the CLI, attack then eval, in a working directory of its own
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            cli_launches = run_cli(work)
+        finally:
+            os.chdir(cwd)
+    png_ms = decode_ms()
+    print(f"[9 cli] PNG decode per 299² image on the host ({png_ms['host_cpus']} CPUs): "
+          f"the port's (filter 0) {png_ms['filter0_decode_ms']:.2f} ms, with the resize "
+          f"to 224² {png_ms['filter0_load_image_ms']:.2f} ms; Paeth-filtered (the sweep "
+          f"PIL's filtered files take) {png_ms['paeth_decode_ms']:.2f} ms, with the resize "
+          f"{png_ms['paeth_load_image_ms']:.2f} ms")
+
+    # 10. the bench line
+    print("[10 bench] ", end="")
+    bench.main([])
+
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
     row_1x1 = {k: sum(c[k] for c in in_chain) for k in ("ms", "plain_ms", "library_ms")}
@@ -374,7 +509,8 @@ def main() -> None:
         {"name": "fused_sign_update", "route": "cuda",
          "source": "transferattack_torch/ops/csrc/fused_update.cu",
          "replaces": "transferattack_tpu/ops/pallas_update.py:33",
-         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+         "launches": launches, "launches_cli": cli_launches, "max_abs_err": max_err,
+         "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,
          "library_ms": None},
         {"name": "fused_bwd_1x1", "route": "cuda", "source": FUSED_BWD_CU,

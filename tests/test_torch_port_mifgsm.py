@@ -79,9 +79,16 @@ def test_l2_mifgsm_agrees_with_jax(pair):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, transferattack_torch, transferattack_torch.gradient.mifgsm; "
+    """Every module of the port imports without JAX, Flax, the JAX package
+    or PIL (the card's machine has none of them)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "transferattack_torch").rglob("*.py") if p.name != "__init__.py")
+    assert "transferattack_torch.main" in modules and len(modules) >= 20
+    code = (f"import sys, importlib, transferattack_torch; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'transferattack_tpu')]; assert not bad, bad")
+            "('jax', 'flax', 'transferattack_tpu', 'PIL')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 

@@ -27,16 +27,23 @@ from ..utils.bridge import load_flat_variables
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+INCEPTION_MEAN = (0.5, 0.5, 0.5)
+INCEPTION_STD = (0.5, 0.5, 0.5)
 
-# name -> (builder() -> nn.Module, input_size, mean, std)
-_MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int, tuple, tuple]] = {}
+# name -> (builder() -> nn.Module, input_size, mean, std, sized)
+_MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int, tuple, tuple, bool]] = {}
 # models that were asked for pretrained weights but ran on a random init
 _FALLBACKS: set = set()
 
 
-def register_model(name, input_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+def register_model(name, input_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                   sized=False):
+    """Register ``builder`` under ``name``.  ``sized``: the builder takes
+    ``img_size``, because its parameter shapes depend on the input size
+    (a Flax module infers them from its first input; a torch module is
+    built before it sees one)."""
     def deco(builder):
-        _MODEL_REGISTRY[name] = (builder, input_size, mean, std)
+        _MODEL_REGISTRY[name] = (builder, input_size, mean, std, sized)
         return builder
 
     return deco
@@ -120,6 +127,35 @@ class Surrogate:
         return self.module(x)
 
 
+def round_variables_to_bf16(module: nn.Module) -> None:
+    """Give ``module`` the numerics of the JAX CLI's ``--bf16`` eval, in place.
+
+    JAX casts the variables (parameters and BN statistics) to bf16, and
+    Flax's layers promote them back to the fp32 input, except eval-mode
+    BatchNorm: its multiplier ``rsqrt(var + eps) * scale`` is made of
+    variables alone, so it is bf16 arithmetic.  Jitted, XLA rounds the sum
+    and the ``rsqrt`` to bf16 and keeps the product with the scale in fp32
+    (it drops a rounding whose result is only widened again).  Here every
+    variable is rounded to bf16, and each BatchNorm's weight becomes that
+    multiplier, with variance 1 and eps 0 so that it is applied as it is.
+    Each step runs in fp32 and is rounded explicitly, as XLA does it: torch's
+    own bf16 ``rsqrt`` on the CPU can miss the nearest bf16 by one step.
+    """
+    def bf16(t):  # round to bf16, keep fp32
+        return torch.as_tensor(t, dtype=torch.float32).to(torch.bfloat16).float()
+
+    with torch.no_grad():
+        for t in module.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16))
+        for m in module.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                inv = bf16(torch.rsqrt(bf16(m.running_var + bf16(m.eps))))
+                m.weight.copy_(inv * m.weight)
+                m.running_var.fill_(1.0)
+                m.eps = 0.0
+
+
 def _weights_path(name: str) -> Optional[str]:
     root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
     p = os.path.join(root, f"{name}.npz")
@@ -132,9 +168,18 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: f[k] for k in f.files}
 
 
+# parameters of no layer type, initialised as Flax does: position
+# embeddings and Swin's relative position bias from a normal of std 0.02,
+# class and distillation tokens zero
+_NORMAL_002 = ("pos_embed", "pos_embed1", "pos_embed2", "pos_embed3",
+               "relative_position_bias_table")
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init at Flax's default scales: lecun-normal (truncated
-    at two standard deviations) kernels, zero biases, identity BatchNorm."""
+    at two standard deviations) kernels, zero biases, identity BatchNorm
+    and LayerNorm, and the free parameters of ``_NORMAL_002`` drawn from a
+    normal of std 0.02 (others zero)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -145,8 +190,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            else:
+                for pname, p in m.named_parameters(recurse=False):
+                    if pname in _NORMAL_002:
+                        nn.init.normal_(p, 0.0, 0.02, generator=generator)
+                    else:
+                        p.zero_()
 
 
 def make_model(
@@ -159,6 +210,8 @@ def make_model(
 ) -> Surrogate:
     """Build a wrapped surrogate by registry name, in eval mode with every
     parameter frozen (the attack differentiates the input only).
+    ``input_size`` overrides the registry's input size (the models whose
+    parameter shapes depend on it are built for it).
 
     The weights are built on the CPU and then moved, so one ``seed`` gives
     the same model on every device.
@@ -166,10 +219,10 @@ def make_model(
     dev = resolve_device(device)
     if name not in _MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {list_models()}")
-    builder, size, mean, std = _MODEL_REGISTRY[name]
+    builder, size, mean, std, sized = _MODEL_REGISTRY[name]
     if input_size is not None:
         size = input_size
-    backbone = builder(**kwargs)
+    backbone = builder(img_size=size, **kwargs) if sized else builder(**kwargs)
     module = WrappedModel(backbone, size, mean, std)
     wpath = _weights_path(name) if pretrained else None
     if wpath is not None:
@@ -196,3 +249,10 @@ def resolve_model(spec, **kwargs) -> Surrogate:
 # model definition modules register themselves on import
 from . import toy  # noqa: E402,F401
 from . import resnet  # noqa: E402,F401
+from . import vgg  # noqa: E402,F401
+from . import mobilenet  # noqa: E402,F401
+from . import inception  # noqa: E402,F401
+from . import vit  # noqa: E402,F401
+from . import pit  # noqa: E402,F401
+from . import swin  # noqa: E402,F401
+from . import visformer  # noqa: E402,F401

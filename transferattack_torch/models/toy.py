@@ -18,7 +18,7 @@ def same_pad(x, kernel: int, stride: int):
         out = -(-n // stride)
         total = max((out - 1) * stride + kernel - n, 0)
         pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    return F.pad(x, pads) if any(pads) else x
 
 
 class ToyCNN(nn.Module):

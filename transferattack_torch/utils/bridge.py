@@ -5,15 +5,27 @@ as a flat dict ``{"params/backbone/layer1_0/conv1/kernel": array, ...}``.
 This module inverts the rules of ``transferattack_tpu/utils/convert.py``
 (PyTorch ``state_dict`` → Flax), so the same dict loads into the port:
 
-* a 4-D ``kernel`` (HWIO) becomes ``weight`` (OIHW); a 2-D ``kernel``
-  (I, O) becomes ``weight`` (O, I); ``bias`` passes through;
-* BatchNorm ``scale``/``bias`` become ``weight``/``bias``, and
+* a 4-D ``kernel`` (HWIO, grouped and depthwise ones too) becomes ``weight``
+  (OIHW); a 2-D ``kernel`` (I, O) becomes ``weight`` (O, I); ``bias``
+  passes through; a 4-D ``pos_embed*`` (1, H, W, C) becomes (1, C, H, W);
+* BatchNorm and LayerNorm ``scale``/``bias`` become ``weight``/``bias``, and
   ``batch_stats/.../mean``/``var`` become ``running_mean``/``running_var``;
-* ``layerN_j`` becomes ``layerN.j``, ``downsample_conv`` becomes
-  ``downsample.0`` and ``downsample_bn`` becomes ``downsample.1``.
+  other leaves (``cls_token``, ``relative_position_bias_table``, ...) keep
+  their names;
+* module paths: ``layerN_j`` → ``layerN.j``, ``features_N`` →
+  ``features.N`` (likewise ``classifier``, ``blocks``, ``stageN``),
+  ``downsample_conv``/``downsample_bn`` → ``downsample.0``/``.1``,
+  ``patch_embed`` → ``patch_embed.proj``, ``patch_norm`` →
+  ``patch_embed.norm``, ``layers_i_blocks_j`` → ``layers.i.blocks.j`` (and
+  ``transformers_i_*``, ``*_downsample``, ``*_pool``), and MobileNetV2's
+  named pairs back to torchvision's ``Sequential`` indices
+  (``features_N/conv`` → ``features.N.0``, ``conv_k/bn`` → ``conv.k.1``,
+  ``bn_k`` → ``conv.{k+1}``).
 
-The port's module names are torchvision's, so a real ``.pth`` state_dict
-loads with ``load_state_dict`` and needs no bridge.
+The port's module names are the ones the JAX converter maps (torchvision's
+and timm's; Visformer's are the JAX model's own, see its module), so a
+``state_dict`` with those names loads with ``load_state_dict`` and needs no
+bridge.
 """
 from __future__ import annotations
 
@@ -25,37 +37,60 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_BLOCK = re.compile(r"(layer\d+)_(\d+)")
+_INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|stage\d+|conv)_(\d+)")
+_STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
+_RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
+            "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
+# a ConvBNReLU of MobileNetV2 (``features_0``, ``features_18``, ``conv_k``
+# inside a block): its ``conv``/``bn`` children are Sequential entries 0/1
+_CONV_BN_RELU = re.compile(r"features_\d+|conv_\d+")
+_PROJECTION_BN = re.compile(r"bn_(\d+)")  # MobileNetV2's last BN of a block
+
+
+def _module_path(path) -> list:
+    parts, prev = [], ""
+    for p in path:
+        staged, indexed = _STAGED.fullmatch(p), _INDEXED.fullmatch(p)
+        if p in _RENAMED:
+            parts += _RENAMED[p]
+        elif staged:
+            parts += [staged.group(1), staged.group(2)] + (
+                ["blocks", staged.group(3)] if staged.group(3) else [staged.group(4)])
+        elif p in ("conv", "bn") and _CONV_BN_RELU.fullmatch(prev):
+            parts.append("0" if p == "conv" else "1")
+        elif _PROJECTION_BN.fullmatch(p):
+            parts += ["conv", str(int(p[3:]) + 1)]
+        elif indexed:
+            parts += [indexed.group(1), indexed.group(2)]
+        else:
+            parts.append(p)
+        prev = p
+    return parts
 
 
 def torch_key(jax_key: str) -> str:
     """``params/backbone/layer1_0/downsample_bn/scale`` →
     ``backbone.layer1.0.downsample.1.weight``."""
     collection, *path, leaf = jax_key.split("/")
-    leaves = {"params": _PARAM_LEAVES, "batch_stats": _STAT_LEAVES}.get(collection)
-    if leaves is None or leaf not in leaves:
+    if collection == "params":
+        name = _PARAM_LEAVES.get(leaf, leaf)  # cls_token, pos_embed, ... as they are
+    elif collection == "batch_stats" and leaf in _STAT_LEAVES:
+        name = _STAT_LEAVES[leaf]
+    else:
         raise ValueError(f"no bridge rule for JAX variable {jax_key!r}")
-    parts = []
-    for p in path:
-        block = _BLOCK.fullmatch(p)
-        if block:
-            parts += [block.group(1), block.group(2)]
-        elif p == "downsample_conv":
-            parts += ["downsample", "0"]
-        elif p == "downsample_bn":
-            parts += ["downsample", "1"]
-        else:
-            parts.append(p)
-    return ".".join(parts + [leaves[leaf]])
+    return ".".join(_module_path(path) + [name])
 
 
 def torch_layout(jax_key: str, value: np.ndarray) -> np.ndarray:
     """Transpose a JAX kernel into PyTorch's weight layout."""
-    if jax_key.endswith("/kernel"):
+    leaf = jax_key.rsplit("/", 1)[-1]
+    if leaf == "kernel":
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         if value.ndim == 2:
             return value.T  # (I, O) -> (O, I)
+    if leaf.startswith("pos_embed") and value.ndim == 4:
+        return value.transpose(0, 3, 1, 2)  # (1, H, W, C) -> (1, C, H, W)
     return value
 
 
