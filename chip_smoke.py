@@ -11,7 +11,8 @@ random weights.  Phases:
 2. build: compile the CUDA kernels from ``transferattack_torch/ops/csrc``
    (three sources), one nvcc per source, all started together;
 3. kernel: ``fused_sign_update`` bit-exact with its plain PyTorch version at
-   the main-path shape and at a ragged one, and both timed;
+   the main-path shape, at batch 32 (phases 9 and 11) and at a ragged one,
+   and both timed at the main-path shape;
 4. fp32 parity: MI-FGSM on the card (TF32 off) against the same model on the
    CPU, 2 images, 3 iterations: deltas agree in sign on > 99% of elements;
 5. main path: bounds, a loss that rose, exactly 10 kernel launches per call,
@@ -43,7 +44,16 @@ random weights.  Phases:
    eight models must print eight ``{model}: {asr:.1f}`` lines with a
    white-box ResNet-50 ASR of at least 90; and the PNG decode is timed
    (``scripts/bench_png.py``);
-10. bench: the line of ``python -m transferattack_torch.bench``.
+10. bench: the line of ``python -m transferattack_torch.bench``;
+11. the gradient family, 25 keys: (a) each on the card and on the CPU, fp32
+    with TF32 off, ResNet-18 at 64², batch 2, 2 iterations and few draws,
+    its random draws from one numpy bank through its seams: deltas agree in
+    sign on > 99% of elements; (b) each at full width, ResNet-50 bf16, 224²,
+    batch 32, official hyperparameters (RAP capped, printed as ``reduced``),
+    labels the surrogate's own predictions: bounds, a finite delta, a loss
+    that rose, exactly the update-kernel launches the code implies (0 where
+    the attack has its own clip), and its gradient evaluations, images per
+    second and peak memory.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -70,6 +80,8 @@ import transferattack_torch as tt
 from transferattack_torch import bench
 from transferattack_torch import main as cli
 from transferattack_torch.attack import softmax_cross_entropy
+from transferattack_torch.config import official_defaults
+from transferattack_torch.gradient.mef import MEF
 from transferattack_torch.models import init_weights, make_model
 from transferattack_torch.models.resnet import Bottleneck, fold_bn
 from transferattack_torch.ops import _build
@@ -102,6 +114,27 @@ FUSED_BWD_3X3_CU = "transferattack_torch/ops/csrc/fused_bwd_3x3.cu"
 # than a block.  (shape of g, output channels)
 STAGES_3X3 = tuple(((128, s, s, c), c) for s, c in ((56, 64), (28, 128), (14, 256), (7, 512)))
 EDGES_3X3 = (((3, 13, 17, 64), 64), ((5, 4, 5, 48), 16), ((1, 3, 300, 64), 64))
+# phase 11: the gradient family
+GRADIENT_KEYS = ("pifgsm", "vmifgsm", "vnifgsm", "emifgsm", "aifgtm", "ifgssm", "smifgrm",
+                 "vaifgsm", "rap", "pcifgsm", "iefgsm", "gra", "gnp", "mig", "dta", "pgn",
+                 "mef", "gifgsm", "rgmifgsm", "dual_mifgsm", "ens_mifgsm", "fgsra", "gaa",
+                 "foolmix", "adamsi_fgm")
+# the keys with a clip of their own: the update kernel is not on their path
+OWN_CLIP = ("pifgsm", "aifgtm", "ifgssm", "adamsi_fgm", "gra", "fgsra", "foolmix", "vaifgsm")
+# 11a: few draws and short loops (two points a batch where a key stacks them)
+GRADIENT_SMALL = {
+    "vmifgsm": {"num_neighbor": 2, "sample_chunk": 2},
+    "vnifgsm": {"num_neighbor": 2, "sample_chunk": 2},
+    "gra": {"num_neighbor": 2, "sample_chunk": 2}, "gaa": {"N": 2, "sample_chunk": 2},
+    "pgn": {"num_neighbor": 2, "sample_chunk": 2}, "mef": {"num_neighbor": 2},
+    "fgsra": {"max_iter": 2}, "smifgrm": {"num_neighbor": 2},
+    "rap": {"transpoint": 1, "adv_steps": 2}, "dta": {"K": 2}, "gifgsm": {"pre_epoch": 2},
+    "rgmifgsm": {"pre_epoch": 2, "num_directions": 2}, "ens_mifgsm": {"num_d": 2},
+}
+# 11b: the official hyperparameters, but where a call would take well over
+# 5 s: RAP's 400 iterations (100 + 300 x 9 gradients) at a tenth
+GRADIENT_CAPS = {"rap": {"epoch": 40, "transpoint": 10}}
+GRADIENT_BATCH = 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -130,6 +163,135 @@ def errors(out, ref):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bank_seams(atk, rng) -> None:
+    """Route every random draw of ``atk`` through its seams to the numpy
+    stream ``rng``: two attacks given streams of one seed draw the same
+    values, on any device."""
+    dev = atk.device
+
+    def uniform(shape, r):
+        return torch.from_numpy(rng.uniform(-r, r, shape).astype(np.float32)).to(dev)
+
+    def start(x):  # a box-clipped uniform(-eps, eps) random start
+        return torch.clamp(x + uniform(x.shape, atk.eps), 0, 1) - x
+
+    def aux_labels(y, num_classes):  # distinct, none the true class
+        scores = rng.rand(y.shape[0], num_classes)
+        scores[np.arange(y.shape[0]), y.cpu().numpy()] = np.inf
+        return torch.from_numpy(scores.argsort(axis=1)[:, :atk.aux_num].T.copy()).to(dev)
+
+    seams = {
+        # MEF draws all its neighbours at once
+        "neighbor_noise": lambda gen, x, state: uniform(
+            ((atk.num_neighbor,) if isinstance(atk, MEF) else ()) + x.shape, 2 * EPS),
+        "spectral_draws": lambda gen, x, state: (
+            uniform((atk.max_iter,) + x.shape, 2 * EPS),
+            1 + uniform((atk.max_iter,) + x.shape, 0.7)),
+        "pixel_blocks": lambda gen, x, step: uniform((atk.n,) + x.shape, 0.2),
+        "other_labels": lambda gen, batch, step: torch.from_numpy(
+            rng.randint(0, atk.model.num_classes, (atk.n, atk.z, batch))).to(dev),
+        "sample_aux_labels": lambda gen, y, num_classes: aux_labels(y, num_classes),
+        "restart_delta": lambda gen, x, *where: start(x),
+        "init_n_rap": lambda gen, point: uniform(point.shape, atk.epsilon_n),
+    }
+    for name, seam in seams.items():
+        if hasattr(atk, name):
+            setattr(atk, name, seam)
+
+
+def expected_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call of ``key``, as its code
+    implies them."""
+    if key in OWN_CLIP:
+        return 0
+    if key == "dta":  # each of K inner steps, then the outer one
+        return atk.epoch * (atk.K + 1)
+    if key == "gifgsm":
+        return atk.pre_epoch + atk.epoch
+    if key == "rgmifgsm":
+        return atk.num_directions * atk.pre_epoch + atk.epoch
+    return atk.epoch
+
+
+def run_gradient_family(dev, smi) -> dict:
+    """Phase 11; returns each key's update-kernel launches in its 11b call."""
+    # (a) the card against the CPU
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(11)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    models = {where: make_model("resnet18", pretrained=False, input_size=64, device=where)
+              for where in ("cuda", "cpu")}
+    for key in GRADIENT_KEYS:
+        deltas = {}
+        for where, model in models.items():
+            atk = tt.load_attack_class(key)(model_name=model, epoch=2, device=where,
+                                            **GRADIENT_SMALL.get(key, {}))
+            bank_seams(atk, np.random.RandomState(12))
+            deltas[where] = atk(xs, ys).cpu().numpy()
+        agree = float((np.sign(deltas["cuda"]) == np.sign(deltas["cpu"])).mean())
+        check(agree > 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        check(0 < np.abs(deltas["cuda"]).max() <= EPS + 1e-6, f"{key}: |delta|inf on the card")
+        print(f"[11a gradient] {key}: ResNet-18 64², batch 2, 2 iterations, fp32: delta "
+              f"sign agreement card vs CPU {agree:.6f}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del models
+
+    # (b) full width
+    surrogate = make_model("resnet50", device="cuda")
+    surrogate.module.to(torch.bfloat16)
+    surrogate.compute_dtype = torch.bfloat16
+    x = torch.from_numpy(np.random.RandomState(13).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        logits0 = surrogate.apply(x)
+    y = logits0.argmax(-1)
+    ce0 = float(softmax_cross_entropy(logits0, y).mean())
+    launches = {}
+    for key in GRADIENT_KEYS:
+        atk = tt.load_attack_class(key)(model_name=surrogate, compute_dtype="bfloat16",
+                                        device="cuda", **GRADIENT_CAPS.get(key, {}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[key] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = expected_launches(key, atk)
+        check(launches[key] == want,
+              f"{key}: {launches[key]} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{key}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= EPS + 1e-6, f"{key}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{key}: x + delta leaves [0, 1]")
+        with torch.no_grad():
+            ce1 = float(softmax_cross_entropy(surrogate.apply(adv), y).mean())
+        check(ce1 > ce0, f"{key}: cross-entropy did not rise: {ce0} -> {ce1}")
+        caps = GRADIENT_CAPS.get(key)
+        reduced = ("; reduced: " + ", ".join(
+            f"{k} {official_defaults(key)[k]} -> {v}" for k, v in caps.items())
+            if caps else "")
+        print(f"[11b gradient] {key}: ResNet-50 bf16, batch {GRADIENT_BATCH}, 224²: "
+              f"{atk.grad_evals} gradient evaluations (batches of {GRADIENT_BATCH}), "
+              f"{launches[key]} update-kernel launches, {secs:.3f} s, "
+              f"{GRADIENT_BATCH / secs:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {linf * 255:.4f}, CE {ce0:.4f} -> {ce1:.4f} on {smi}"
+              f"{reduced}")
+        print(json.dumps({"gradient_key": key, "grad_evals": atk.grad_evals,
+                          "launches": launches[key], "seconds": secs,
+                          "img_per_s": GRADIENT_BATCH / secs, "peak_gib": peak,
+                          "ce": [ce0, ce1], "reduced": caps or {}}))
+        del atk, delta, adv
+    return launches
 
 
 def run_cli(work: str):
@@ -211,7 +373,8 @@ def main() -> None:
     # 3. kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
-    for shape in (MAIN_SHAPE, (3, 37, 41, 3)):
+    # the main path's shape, phase 11's and the CLI's (batch 32), a ragged one
+    for shape in (MAIN_SHAPE, (GRADIENT_BATCH, 224, 224, 3), (3, 37, 41, 3)):
         d, m, x = update_inputs(shape, gen, dev)
         out = fused_sign_update(d, m, x, ALPHA, EPS, 0.0, 1.0)
         ref = fused_sign_update_plain(d, m, x, ALPHA, EPS, 0.0, 1.0)
@@ -499,6 +662,9 @@ def main() -> None:
     print("[10 bench] ", end="")
     bench.main([])
 
+    # 11. the gradient family
+    gradient_launches = run_gradient_family(dev, smi)
+
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
     row_1x1 = {k: sum(c[k] for c in in_chain) for k in ("ms", "plain_ms", "library_ms")}
@@ -509,7 +675,8 @@ def main() -> None:
         {"name": "fused_sign_update", "route": "cuda",
          "source": "transferattack_torch/ops/csrc/fused_update.cu",
          "replaces": "transferattack_tpu/ops/pallas_update.py:33",
-         "launches": launches, "launches_cli": cli_launches, "max_abs_err": max_err,
+         "launches": launches, "launches_cli": cli_launches,
+         "launches_gradient": gradient_launches, "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,
          "library_ms": None},

@@ -10,7 +10,8 @@
   flip where a gradient element is near zero, and a value can round the
   other way), and identical ``results_eval.txt`` rows over
   ``toy_cnn,resnet18``, with and without ``--bf16`` (the eval model's
-  variables rounded to bf16).
+  variables rounded to bf16); and the same attack bar for MIG, a
+  gradient-family key that drops ``--alpha``.
 * ``bench.py``: its JSON line on ``toy_cnn``.
 """
 import json
@@ -215,6 +216,40 @@ def test_cli_attack_outputs_agree_with_jax(cli_runs):
     assert (cli_runs / "profile" / "trace.json").stat().st_size > 0  # --profile_dir
     meta = json.load(open(cli_runs / "port" / "attack_meta.json"))
     assert meta == {**json.load(open(cli_runs / "jax" / "attack_meta.json")),
+                    "fallback_weights_used": []}
+
+
+@pytest.fixture(scope="module")
+def cli_mig_runs(cli_runs):
+    """Both CLIs with a gradient-family key, MIG, on the same dataset and
+    weights.  MIG sets its own step (eps/epoch) and drops ``--alpha``, so the
+    override path is held too: an ``--alpha`` that got through would move
+    the port's PNGs far from JAX's."""
+    import main as jmain
+    from transferattack_torch import main as tmain
+
+    attack = ["--attack", "mig", "--model", "toy_cnn", "--epoch", "2", "--alpha", "0.5",
+              "--batchsize", "4", "--input_dir", str(cli_runs / "data")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TA_TPU_WEIGHTS_DIR", str(cli_runs / "weights"))
+        mp.setattr(sys, "argv", ["main.py", *attack, "--output_dir",
+                                 str(cli_runs / "jax_mig")])
+        jmain.main()
+        tmain.main([*attack, "--output_dir", str(cli_runs / "port_mig"), "--device", "cpu"])
+    return cli_runs
+
+
+def test_cli_gradient_key_outputs_agree_with_jax(cli_mig_runs):
+    names = sorted(n for n in os.listdir(cli_mig_runs / "data" / "images"))
+    jax_px = np.stack([np.asarray(Image.open(cli_mig_runs / "jax_mig" / n)) for n in names])
+    port_px = np.stack([np.asarray(Image.open(cli_mig_runs / "port_mig" / n)) for n in names])
+    assert port_px.shape == (8, 224, 224, 3)
+    assert (jax_px == port_px).mean() >= 0.99
+    clean = np.stack([np.round(jdata.load_image(str(cli_mig_runs / "data" / "images" / n))
+                               * 255) for n in names])
+    assert 0 < np.abs(port_px - clean).max() <= 16
+    meta = json.load(open(cli_mig_runs / "port_mig" / "attack_meta.json"))
+    assert meta == {**json.load(open(cli_mig_runs / "jax_mig" / "attack_meta.json")),
                     "fallback_weights_used": []}
 
 

@@ -16,6 +16,31 @@ attack_zoo: Dict[str, Tuple[str, str]] = {
     "ifgsm": (".gradient.mifgsm", "IFGSM"),
     "mifgsm": (".gradient.mifgsm", "MIFGSM"),
     "nifgsm": (".gradient.mifgsm", "NIFGSM"),
+    "pifgsm": (".gradient.pifgsm", "PIFGSM"),
+    "vmifgsm": (".gradient.vmifgsm", "VMIFGSM"),
+    "vnifgsm": (".gradient.vmifgsm", "VNIFGSM"),
+    "emifgsm": (".gradient.emifgsm", "EMIFGSM"),
+    "aifgtm": (".gradient.aifgtm", "AIFGTM"),
+    "ifgssm": (".gradient.ifgssm", "IFGSSM"),
+    "smifgrm": (".gradient.smifgrm", "SMIFGRM"),
+    "vaifgsm": (".gradient.vaifgsm", "VAIFGSM"),
+    "rap": (".gradient.rap", "RAP"),
+    "pcifgsm": (".gradient.iefgsm", "PCIFGSM"),
+    "iefgsm": (".gradient.iefgsm", "IEFGSM"),
+    "gra": (".gradient.gra", "GRA"),
+    "gnp": (".gradient.iefgsm", "GNP"),
+    "mig": (".gradient.mig", "MIG"),
+    "dta": (".gradient.dta", "DTA"),
+    "pgn": (".gradient.pgn", "PGN"),
+    "mef": (".gradient.mef", "MEF"),
+    "gifgsm": (".gradient.gifgsm", "GIFGSM"),
+    "rgmifgsm": (".gradient.tricks", "RGMIFGSM"),
+    "dual_mifgsm": (".gradient.tricks", "DualMIFGSM"),
+    "ens_mifgsm": (".gradient.tricks", "Ens_FGSM_MIFGSM"),
+    "fgsra": (".gradient.fgsra", "FGSRA"),
+    "gaa": (".gradient.gaa", "GAA"),
+    "foolmix": (".gradient.foolmix", "Foolmix"),
+    "adamsi_fgm": (".gradient.adamsi_fgm", "AdaMSI_FGM"),
 }
 
 

@@ -42,6 +42,35 @@ def l1_normalize(g: Tensor) -> Tensor:
     return g / (denom + 1e-12)
 
 
+def mean_over_draws(fn, gen: torch.Generator, n: int, chunk: int = 1) -> Tensor:
+    """Mean of ``n`` samples of ``fn``, drawn from ``gen`` (JAX's
+    ``mean_over_keys``).
+
+    ``fn(gen, k)`` draws ``k`` samples and returns their values stacked on a
+    leading axis.  ``chunk > 1`` (when it divides ``n``) asks for that many
+    samples a call, so that their gradients run as one larger batch; the
+    samples are drawn in the same order either way.
+    """
+    k = chunk if chunk > 1 and n % chunk == 0 else 1
+    total = fn(gen, k).sum(0)
+    for _ in range(n // k - 1):
+        total = total + fn(gen, k).sum(0)
+    return total / n
+
+
+def global_l1_normalize(g: Tensor) -> Tensor:
+    """Normalize by the global L1 norm (PC-I-FGSM's ``torch.norm(grad, p=1)``)."""
+    return g / (g.abs().sum() + 1e-12)
+
+
+def cosine_similarity(a: Tensor, b: Tensor) -> Tensor:
+    """Per-example cosine similarity, broadcastable back over image dims."""
+    af = a.reshape(a.shape[0], -1)
+    bf = b.reshape(b.shape[0], -1)
+    cos = (af * bf).sum(dim=1) / (af.norm(dim=1) * bf.norm(dim=1) + 1e-20)
+    return cos.reshape((-1,) + (1,) * (a.ndim - 1))
+
+
 def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     """Per-example CE. ``logits``: (..., B, C); ``labels``: (B,) int."""
     logp = F.log_softmax(logits, dim=-1)
@@ -97,6 +126,7 @@ class Attack:
         self.norm = norm
         self.loss_name = loss
         self.seed = int(seed)
+        self.grad_evals = 0
 
     # ------------------------------------------------------------------
     # hooks — override in subclasses
@@ -151,9 +181,22 @@ class Attack:
         additively, so this is also the gradient w.r.t. delta at
         ``point = x + delta``.  The surrogate's parameters are frozen, so
         the backward computes the input gradient only."""
-        point = point.detach().requires_grad_(True)
-        loss = self.get_loss(self.get_logits(self.transform(point, state, gen)), y)
-        (grad,) = torch.autograd.grad(loss, point)
+        return self.input_grads(point[None], y, state, gen)[0]
+
+    def input_grads(self, points: Tensor, y: Tensor, state: AttackState,
+                    gen: torch.Generator) -> Tensor:
+        """:meth:`input_grad` at each of a stack of points ``(k, B, H, W, C)``,
+        through the surrogate as one batch.  The loss is the sum of each
+        point's own loss (a mean over the stack would scale every gradient by
+        ``1/k``); eval-mode BatchNorm couples no images, so each gradient is
+        the one ``input_grad`` gives.  ``grad_evals`` counts the batches of B
+        images taken through the surrogate's backward."""
+        points = points.detach().requires_grad_(True)
+        xs = [self.transform(p, state, gen) for p in points]
+        logits = self.get_logits(xs[0] if len(xs) == 1 else torch.cat(xs))
+        self.grad_evals += logits.shape[0]
+        loss = sum(self.get_loss(part, y) for part in logits.chunk(len(xs)))
+        (grad,) = torch.autograd.grad(loss, points)
         return grad
 
     def post_grad(self, grad: Tensor, state: AttackState) -> Tensor:
@@ -164,26 +207,28 @@ class Attack:
         """L1-mean-normalized accumulation."""
         return momentum * self.decay + l1_normalize(grad)
 
-    def update_delta(self, delta: Tensor, x: Tensor, grad_dir: Tensor) -> Tensor:
-        """Step + project."""
+    def update_delta(self, delta: Tensor, x: Tensor, grad_dir: Tensor,
+                     alpha: Optional[float] = None) -> Tensor:
+        """Step + project; ``alpha`` (a scalar) overrides ``self.alpha``."""
+        alpha = self.alpha if alpha is None else float(alpha)
         if self.norm == "linfty":
-            return fused_sign_update(delta, grad_dir.contiguous(), x, self.alpha,
+            return fused_sign_update(delta, grad_dir.contiguous(), x, alpha,
                                      self.eps, img_min, img_max)
         # per-sample L2-normalized step, then eps-ball renorm projection
         shape = (-1,) + (1,) * (grad_dir.ndim - 1)
         gn = grad_dir.reshape(grad_dir.shape[0], -1).norm(dim=1).reshape(shape)
-        d = delta + self.alpha * grad_dir / (gn + 1e-20)
+        d = delta + alpha * grad_dir / (gn + 1e-20)
         n = d.reshape(d.shape[0], -1).norm(dim=1).reshape(shape)
         delta = d * torch.clamp(self.eps / (n + 1e-12), max=1.0)
         return torch.clamp(x + delta, img_min, img_max) - x
 
-    def step(self, x: Tensor, y: Tensor, state: AttackState,
-             gen: torch.Generator) -> AttackState:
-        """One attack iteration."""
+    def step(self, x: Tensor, y: Tensor, state: AttackState, gen: torch.Generator,
+             alpha: Optional[float] = None) -> AttackState:
+        """One attack iteration; ``alpha`` overrides the step size."""
         grad, extra_up = self.get_grad(x, y, state, gen)
         grad = self.post_grad(grad, state)
         momentum = self.get_momentum(grad, state.momentum)
-        delta = self.update_delta(state.delta, x, momentum)
+        delta = self.update_delta(state.delta, x, momentum, alpha)
         return AttackState(delta=delta, momentum=momentum, step=state.step + 1,
                            extra={**state.extra, **extra_up})
 
