@@ -53,7 +53,21 @@ random weights.  Phases:
     labels the surrogate's own predictions: bounds, a finite delta, a loss
     that rose, exactly the update-kernel launches the code implies (0 where
     the attack has its own clip), and its gradient evaluations, images per
-    second and peak memory.
+    second and peak memory;
+12. the image ops and the input-transformation keys with ANDA and MUMODIG, 19
+    keys: (a) each on the card and on the CPU, fp32 with TF32 off, ResNet-18
+    at 64², batch 2, 2 iterations and few copies, every draw from one seeded
+    CPU generator handed to both calls (the port draws on the generator's
+    device and moves the values): deltas agree in sign on > 99% of elements
+    (DeCowA at rho 0, since its map step differentiates bilinear sampling
+    across its kinks; at its official rho 0.01, each step from the CPU's
+    state, the gradients agree to a cosine > 0.99);
+    (b) each at full width, ResNet-50 bf16, 224², batch 32, official
+    hyperparameters (OPS cut to one iteration, printed as ``reduced``),
+    labels the surrogate's own predictions (SU, targeted, a shifted class):
+    bounds, a finite delta, a loss that moved the attack's way, exactly the
+    update-kernel launches the code implies (0 for ANDA, which clips on its
+    own), and its gradient evaluations, images per second and peak memory.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -62,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -135,6 +150,27 @@ GRADIENT_SMALL = {
 # 5 s: RAP's 400 iterations (100 + 300 x 9 gradients) at a tenth
 GRADIENT_CAPS = {"rap": {"epoch": 40, "transpoint": 10}}
 GRADIENT_BATCH = 32
+# phase 12: the input-transformation keys, ANDA and MUMODIG
+INPUT_KEYS = ("dim", "dem", "tim", "sim", "admix", "usmm", "ssm", "ssm_h", "ssm_p", "maskblock",
+              "sia", "bsr", "mfi", "decowa", "ops", "su", "l2t", "anda", "mumodig")
+# 12a: few copies and draws (two points a batch where a key stacks them)
+INPUT_SMALL = {
+    "admix": {"num_scale": 2}, "usmm": {"num_scale": 2},
+    "ssm": {"num_spectrum": 2, "sample_chunk": 2}, "ssm_h": {"num_spectrum": 2, "sample_chunk": 2},
+    "maskblock": {"patch_size": 16}, "sia": {"num_scale": 4}, "bsr": {"num_scale": 4},
+    "mfi": {"mask_radius": 16},
+    # DeCowA's map step differentiates bilinear sampling across its kinks:
+    # a sample point within rounding of a pixel center takes the slope of
+    # one side on the card and of the other on the CPU, so the map, the warp
+    # and the signs after it part.  At rho 0 the warp is held by the sign bar;
+    # the step at rho 0.01 by its gradient's cosine (map_step_cosine).
+    "decowa": {"num_warping": 2, "rho": 0.0},
+    "ops": {"num_sample_neighbor": 2, "num_sample_operator": 2}, "anda": {"n_ens": 4},
+    "mumodig": {"N_trans": 3},
+}
+# 12b: the official hyperparameters, but OPS's 10 iterations of 901 gradient
+# evaluations (about 100 s) cut to one
+INPUT_CAPS = {"ops": {"epoch": 1}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -291,6 +327,117 @@ def run_gradient_family(dev, smi) -> dict:
                           "img_per_s": GRADIENT_BATCH / secs, "peak_gib": peak,
                           "ce": [ce0, ce1], "reduced": caps or {}}))
         del atk, delta, adv
+    return launches
+
+
+def map_step_cosine(models, xs, ys) -> float:
+    """DeCowA at its official rho, card against CPU: the least cosine over
+    two steps between the card's and the CPU's gradient, each card step
+    from the CPU's state, with the same draws."""
+    atks = {w: tt.load_attack_class("decowa")(model_name=m, epoch=2, device=w, num_warping=2)
+            for w, m in models.items()}
+    x = {w: torch.from_numpy(xs).to(w) for w in atks}
+    y = {w: torch.from_numpy(ys).to(w) for w in atks}
+    gens = {w: torch.Generator().manual_seed(22) for w in atks}
+    state = atks["cpu"].init_state(x["cpu"], y["cpu"], gens["cpu"])
+    cos = 1.0
+    for t in range(2):
+        on_card = dataclasses.replace(state, delta=state.delta.cuda(),
+                                      momentum=state.momentum.cuda())
+        g = {w: atks[w].get_grad(x[w], y[w], on_card if w == "cuda" else state,
+                                 torch.Generator().manual_seed(50 + t))[0].cpu()
+             for w in atks}
+        cos = min(cos, float((g["cuda"] * g["cpu"]).sum() / g["cuda"].norm() / g["cpu"].norm()))
+        state = atks["cpu"].step(x["cpu"], y["cpu"], state, gens["cpu"])
+    return cos
+
+
+def run_input_family(dev, smi) -> dict:
+    """Phase 12; returns each key's update-kernel launches in its 12b call."""
+    # (a) the card against the CPU, one seeded CPU generator for both
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(21)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    models = {where: make_model("resnet18", pretrained=False, input_size=64, device=where)
+              for where in ("cuda", "cpu")}
+    for key in INPUT_KEYS:
+        deltas = {}
+        for where, model in models.items():
+            atk = tt.load_attack_class(key)(model_name=model, epoch=2, device=where,
+                                            **INPUT_SMALL.get(key, {}))
+            deltas[where] = atk(xs, ys, generator=torch.Generator().manual_seed(22)).cpu().numpy()
+        agree = float((np.sign(deltas["cuda"]) == np.sign(deltas["cpu"])).mean())
+        check(agree > 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        check(0 < np.abs(deltas["cuda"]).max() <= EPS + 1e-6, f"{key}: |delta|inf on the card")
+        print(f"[12a input] {key}: ResNet-18 64², batch 2, 2 iterations, fp32: delta "
+              f"sign agreement card vs CPU {agree:.6f}")
+    cos = map_step_cosine(models, xs, ys)
+    check(cos > 0.99, f"decowa at rho 0.01: gradient cosine card vs CPU {cos}")
+    print(f"[12a input] decowa at its official rho 0.01, each step from the CPU's state: "
+          f"gradient cosine card vs CPU {cos:.8f} (at least)")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del models
+
+    # (b) full width
+    surrogate = make_model("resnet50", device="cuda")
+    surrogate.module.to(torch.bfloat16)
+    surrogate.compute_dtype = torch.bfloat16
+    x = torch.from_numpy(np.random.RandomState(23).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        logits0 = surrogate.apply(x)
+    y = logits0.argmax(-1)
+    launches = {}
+    for key in INPUT_KEYS:
+        atk = tt.load_attack_class(key)(model_name=surrogate, compute_dtype="bfloat16",
+                                        device="cuda", **INPUT_CAPS.get(key, {}))
+        # a targeted key attacks a class the surrogate does not predict
+        labels = (y + 500) % 1000 if atk.targeted else y
+        ce0 = float(softmax_cross_entropy(logits0, labels).mean())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[key] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = 0 if key == "anda" else atk.epoch
+        check(launches[key] == want,
+              f"{key}: {launches[key]} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{key}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= EPS + 1e-6, f"{key}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{key}: x + delta leaves [0, 1]")
+        with torch.no_grad():
+            ce1 = float(softmax_cross_entropy(surrogate.apply(adv), labels).mean())
+        way = "fell" if atk.targeted else "rose"
+        check(ce1 < ce0 if atk.targeted else ce1 > ce0,
+              f"{key}: cross-entropy to its labels did not move the attack's way: "
+              f"{ce0} -> {ce1}")
+        caps = INPUT_CAPS.get(key)
+        reduced = ("; reduced: " + ", ".join(
+            f"{k} {official_defaults(key)[k]} -> {v}" for k, v in caps.items())
+            if caps else "")
+        print(f"[12b input] {key}: ResNet-50 bf16, batch {GRADIENT_BATCH}, 224²: "
+              f"{atk.grad_evals} gradient evaluations (batches of {GRADIENT_BATCH}), "
+              f"{launches[key]} update-kernel launches, {secs:.3f} s, "
+              f"{GRADIENT_BATCH / secs:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {linf * 255:.4f}, CE {ce0:.4f} -> {ce1:.4f} ({way}) on {smi}"
+              f"{reduced}")
+        print(json.dumps({"input_key": key, "grad_evals": atk.grad_evals,
+                          "launches": launches[key], "seconds": secs,
+                          "img_per_s": GRADIENT_BATCH / secs, "peak_gib": peak,
+                          "ce": [ce0, ce1], "targeted": atk.targeted,
+                          "reduced": caps or {}}))
+        del atk, delta, adv
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -664,6 +811,10 @@ def main() -> None:
 
     # 11. the gradient family
     gradient_launches = run_gradient_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 12. the input-transformation keys, ANDA and MUMODIG
+    input_launches = run_input_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -676,7 +827,8 @@ def main() -> None:
          "source": "transferattack_torch/ops/csrc/fused_update.cu",
          "replaces": "transferattack_tpu/ops/pallas_update.py:33",
          "launches": launches, "launches_cli": cli_launches,
-         "launches_gradient": gradient_launches, "max_abs_err": max_err,
+         "launches_gradient": gradient_launches, "launches_input": input_launches,
+         "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,
          "library_ms": None},

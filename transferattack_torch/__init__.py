@@ -41,6 +41,25 @@ attack_zoo: Dict[str, Tuple[str, str]] = {
     "gaa": (".gradient.gaa", "GAA"),
     "foolmix": (".gradient.foolmix", "Foolmix"),
     "adamsi_fgm": (".gradient.adamsi_fgm", "AdaMSI_FGM"),
+    "anda": (".gradient.anda", "ANDA"),
+    "mumodig": (".gradient.mumodig", "MUMODIG"),
+    "dim": (".input_transformation.dim", "DIM"),
+    "dem": (".input_transformation.dim", "DEM"),
+    "tim": (".input_transformation.tim", "TIM"),
+    "sim": (".input_transformation.sim", "SIM"),
+    "admix": (".input_transformation.sim", "Admix"),
+    "usmm": (".input_transformation.sim", "USMM"),
+    "ssm": (".input_transformation.ssm", "SSM"),
+    "maskblock": (".input_transformation.maskblock", "MaskBlock"),
+    "sia": (".input_transformation.sia", "SIA"),
+    "bsr": (".input_transformation.bsr", "BSR"),
+    "mfi": (".input_transformation.mfi", "MFI"),
+    "decowa": (".input_transformation.decowa", "DeCowA"),
+    "ops": (".input_transformation.ops_attack", "OPS"),
+    "su": (".input_transformation.su", "SU"),
+    "l2t": (".input_transformation.l2t", "L2T"),
+    "ssm_h": (".input_transformation.ssm_tricks", "SSM_H"),
+    "ssm_p": (".input_transformation.ssm_tricks", "SSM_P"),
 }
 
 

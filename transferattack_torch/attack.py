@@ -58,6 +58,14 @@ def mean_over_draws(fn, gen: torch.Generator, n: int, chunk: int = 1) -> Tensor:
     return total / n
 
 
+def draw(gen: torch.Generator, fn, *args, device=None, **kwargs) -> Tensor:
+    """``fn(*args, generator=gen)`` (``torch.rand``, ``randn``, ``randint``,
+    ``randperm``) drawn on the generator's own device and moved to
+    ``device``: one seeded generator gives the same draws to an attack on
+    any device (on the attack's own device the move is free)."""
+    return fn(*args, generator=gen, device=gen.device, **kwargs).to(device)
+
+
 def global_l1_normalize(g: Tensor) -> Tensor:
     """Normalize by the global L1 norm (PC-I-FGSM's ``torch.norm(grad, p=1)``)."""
     return g / (g.abs().sum() + 1e-12)

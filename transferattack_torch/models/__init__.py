@@ -126,6 +126,40 @@ class Surrogate:
             return self.module(x.to(cd)).float()
         return self.module(x)
 
+    def feature(self, x, layer: str):
+        """(logits, feature) at a tap named as the reference names it, the
+        feature in JAX's NHWC layout.  ``layer`` is a backbone module path
+        (``layer3``, ``layer2.3``, torchvision's names), or else the JAX
+        tap key it maps to (``layer2`` → ``stage2``, as ``toy_cnn`` names
+        its stage outputs).  A forward hook takes the module's output."""
+        mod = self.tap_module(layer)
+        taken = []
+        handle = mod.register_forward_hook(lambda m, i, out: taken.append(out))
+        try:
+            logits = self.apply(x)
+        finally:
+            handle.remove()
+        return logits, taken[-1].float().permute(0, 2, 3, 1)
+
+    def tap_module(self, layer: str) -> nn.Module:
+        modules = dict(self.module.backbone.named_modules())
+        name = layer.replace(" ", ".").strip()
+        for cand in (name, tap_key(name)):
+            if cand and cand in modules:
+                return modules[cand]
+        raise KeyError(f"No feature {layer!r} in {type(self.module.backbone).__name__}")
+
+
+def tap_key(reference_layer: str) -> str:
+    """JAX's tap key of a reference layer name: ``layer2`` → ``stage2``,
+    ``layer2.3`` → ``layer2_3``; anything else unchanged."""
+    name = reference_layer.replace(" ", ".").strip()
+    if "." in name:
+        return name.replace(".", "_")
+    if name.startswith("layer") and name[5:].isdigit():
+        return "stage" + name[5:]
+    return name
+
 
 def round_variables_to_bf16(module: nn.Module) -> None:
     """Give ``module`` the numerics of the JAX CLI's ``--bf16`` eval, in place.
