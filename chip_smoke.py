@@ -67,7 +67,20 @@ random weights.  Phases:
     labels the surrogate's own predictions (SU, targeted, a shifted class):
     bounds, a finite delta, a loss that moved the attack's way, exactly the
     update-kernel launches the code implies (0 for ANDA, which clips on its
-    own), and its gradient evaluations, images per second and peak memory.
+    own), and its gradient evaluations, images per second and peak memory;
+13. the feature-tap API and the 24 advanced-objective keys: (a) each on the
+    card and on the CPU, fp32 with TF32 off, ResNet-18 at 64², batch 2, 2
+    iterations, few copies, taps at layer2/layer3, one seeded CPU generator
+    handed to both calls: deltas agree in sign on > 99% of elements; (b)
+    each at full width, ResNet-50 bf16, 224², batch 32, official
+    hyperparameters, labels the surrogate's own predictions (the targeted
+    keys a shifted class; AA's anchors seeded PNGs in a temporary
+    ``input_dir``): bounds, a finite delta, the objective the key optimises
+    moved its way (its loss, logit or feature objective; CE printed beside
+    it), exactly the update-kernel launches its code implies (0 for P2FA
+    and YAILA, whose steps clip on their own, and on TRAP's second phase,
+    BFA's warm-up and FFT's fine-tune), and its gradient evaluations,
+    images per second and peak memory.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -81,6 +94,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import tempfile
 import time
@@ -94,9 +108,10 @@ import torch.nn.functional as F
 import transferattack_torch as tt
 from transferattack_torch import bench
 from transferattack_torch import main as cli
-from transferattack_torch.attack import softmax_cross_entropy
+from transferattack_torch.attack import Attack, softmax_cross_entropy
 from transferattack_torch.config import official_defaults
 from transferattack_torch.gradient.mef import MEF
+from transferattack_torch.gradient.mifgsm import MIFGSM
 from transferattack_torch.models import init_weights, make_model
 from transferattack_torch.models.resnet import Bottleneck, fold_bn
 from transferattack_torch.ops import _build
@@ -171,6 +186,22 @@ INPUT_SMALL = {
 # 12b: the official hyperparameters, but OPS's 10 iterations of 901 gradient
 # evaluations (about 100 s) cut to one
 INPUT_CAPS = {"ops": {"epoch": 1}}
+# phase 13: the advanced-objective keys
+OBJECTIVE_KEYS = ("logit", "logit_margin", "potrip", "taig", "tap", "fuzziness_tuned", "ila",
+                  "ilpd", "fia", "rpa", "fmaa", "bfa", "naa", "danaa", "aa", "ir", "p2fa",
+                  "trap", "ata", "mfaa", "yaila", "cfm", "ftm", "fft")
+# 13a: few copies and short loops on ResNet-18 at 64², taps at layer2/layer3
+# (MFAA's five at ResNet-18's blocks)
+OBJECTIVE_SMALL = {
+    "taig": {"steps": 4}, "tap": {"epoch": 2}, "ila": {"feature_layer": "layer2.1"},
+    "ilpd": {"feature_layer": "layer2.1"}, "fia": {"num_ens": 2}, "rpa": {"num_ens": 4},
+    "fmaa": {"num_ens": 2}, "bfa": {"num_ens": 2, "warmup_epoch": 2}, "naa": {"N": 2},
+    "danaa": {"N": 2}, "p2fa": {"num_ens": 2, "inner_steps": 2},
+    "trap": {"epoch": 4, "baseline_epoch": 2}, "ata": {"layer_name": "layer3"},
+    "mfaa": {"num_ens": 2, "taps": ("layer4_1", "layer3_1", "layer3_0", "layer2_1", "layer2_0")},
+    "yaila": {"ila_epoch": 2}, "fft": {"num_ens": 2, "ft_epoch": 2},
+}
+OBJECTIVE_TARGETED = ("logit", "logit_margin", "potrip", "aa", "cfm", "ftm", "fft")
 
 
 def check(ok: bool, what: str) -> None:
@@ -438,6 +469,214 @@ def run_input_family(dev, smi) -> dict:
                           "reduced": caps or {}}))
         del atk, delta, adv
         torch.cuda.empty_cache()
+    return launches
+
+
+def write_anchors(root: str, classes) -> str:
+    """AA's ``input_dir``: one seeded 224² PNG a class and a 1-indexed
+    ``labels.csv``."""
+    names = [f"anchor_{c:04d}.png" for c in classes]
+    save_images(os.path.join(root, "images"),
+                np.random.RandomState(31).rand(len(names), 224, 224, 3).astype(np.float32),
+                names)
+    with open(os.path.join(root, "labels.csv"), "w") as f:
+        f.write("filename,label\n" + "".join(f"{n},{c + 1}\n" for n, c in zip(names, classes)))
+    return root
+
+
+def objective_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call of ``key``, as its code
+    implies them: none where every step clips on its own (P2FA, YAILA), the
+    main loop only where another phase does (TRAP's second phase, BFA's
+    warm-up, FFT's fine-tune; for TRAP ``epoch`` is its baseline's), and
+    ILA's two loops."""
+    if key in ("p2fa", "yaila"):
+        return 0
+    return 2 * atk.epoch if key == "ila" else atk.epoch
+
+
+def objective_of(key: str, atk, x, y, gen):
+    """(what, f(adv) -> float, way): the quantity ``key`` optimises, read at
+    an adversarial batch, and +1 where it rises, -1 where it falls.  Where
+    the key weighs features by an estimate of its own (FIA's family, NAA,
+    DANAA, P2FA, MFAA), the estimate is drawn afresh from ``gen``; where it
+    follows a baseline (ILA, TRAP), the baseline is run again."""
+    model = atk.model
+    labels = y[:, 1] if y.ndim == 2 else y
+
+    def feat(a, layer):
+        return model.feature(a, layer)[1]
+
+    def mean_logit(a):
+        return float(model.apply(a).gather(1, labels[:, None]).mean())
+
+    if key in ("logit", "cfm", "ftm", "fft"):
+        return "mean target logit", mean_logit, 1
+    if key == "taig":
+        return "mean label logit", mean_logit, -1
+    if key == "logit_margin":
+        # its loss is CE at a temperature of the top-2 margin, which a tie
+        # of bf16 logits at the clean image leaves undefined
+        return "CE to the target", lambda a: float(
+            softmax_cross_entropy(model.apply(a), labels).mean()), -1
+    if key in ("potrip", "fuzziness_tuned"):
+        return "its loss", lambda a: float(atk.get_loss(model.apply(a)[None], y)), 1
+    if key == "tap":
+        with torch.no_grad():
+            orig = model.apply_with_feats(x, "stage")[1]
+        return "TAP loss", lambda a: float(atk.tap_loss(x, y, a - x, orig)), 1
+    if key in ("ir", "ilpd", "yaila"):
+        # IR: -CE minus the interaction, descended; ILPD: CE through its
+        # tap; YAILA: the projection on the CE its ridge fit regresses
+        return "CE", lambda a: float(softmax_cross_entropy(model.apply(a), y).mean()), 1
+    if key in ("fia", "rpa", "fmaa", "bfa"):
+        w = atk.aggregate_grad(x, y, gen)
+        return ("sum feature * weight", lambda a: float((feat(a, atk.feature_layer) * w).sum()),
+                int(atk.step_sign))
+    if key in ("naa", "danaa"):
+        w, base = atk.baseline_and_agg(x, y, gen)
+        return ("attribution", lambda a: float(atk.attribution_loss(
+            feat(a, atk.feature_layer), base, w)), int(atk.step_sign))
+    if key == "p2fa":
+        g = atk._aggregate_grad(x, y)
+        return "sum feature * aggregate", lambda a: float((feat(a, atk.feature_layer) * g).sum()), 1
+    if key == "aa":
+        with torch.no_grad():
+            f_t = feat(atk._tar_data, atk.feature_layer)
+        return ("feature distance to the anchors", lambda a: float(
+            (f_t - feat(a, atk.feature_layer)).reshape(len(a), -1).norm(dim=1).mean()), -1)
+    if key == "ata":
+        cam0 = atk._cam(x, y, False)[0].detach()
+        return ("CE + CAM term", lambda a: float(
+            softmax_cross_entropy(model.apply(a), y).mean()
+            + atk.lamda * ((atk._cam(a, y, False)[0] - cam0) ** 2).sum()), 1)
+    if key == "mfaa":
+        last = atk._taps[-1]
+        g = atk._guidance(x, y, gen)[last]
+        return f"sum {last} * guidance", lambda a: float((feat(a, last) * g).sum()), 1
+    if key == "ila":
+        base = Attack.run(atk, x, y, gen)
+        with torch.no_grad():
+            f0 = feat(x, atk.feature_layer)
+            xdir = (feat(x + base, atk.feature_layer) - f0).reshape(-1)
+        return ("projection on the baseline's direction", lambda a: float(
+            ((feat(a, atk.feature_layer) - f0).reshape(-1) * xdir).sum() / xdir.norm() ** 2), 1)
+    if key == "trap":
+        base = MIFGSM.run(atk, x, y, gen)
+        with torch.no_grad():
+            h_x = feat(x, atk.feature_layer)
+            xdir = (feat(x + base, atk.feature_layer) - h_x).reshape(-1)
+
+        def angle_and_ratio(a):
+            ydir = (feat(a, atk.feature_layer) - h_x).reshape(-1)
+            return float((xdir * ydir).sum() / (xdir.norm() * ydir.norm() + 1e-12)
+                         + atk.coeff * ydir.norm() / xdir.norm())
+        return "angle + ratio to the baseline's displacement", angle_and_ratio, 1
+    raise KeyError(key)
+
+
+def run_objective_family(dev, smi) -> dict:
+    """Phase 13; returns each key's update-kernel launches in its 13b call."""
+    work = tempfile.mkdtemp()
+    try:
+        return _objective_family(dev, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _objective_family(dev, smi, work) -> dict:
+    # (a) the card against the CPU, one seeded CPU generator for both
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(41)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    pairs = np.stack([ys, (ys + 500) % 1000], axis=1)
+    anchors_a = write_anchors(os.path.join(work, "anchors_a"), sorted(set(pairs[:, 1])))
+    models = {where: make_model("resnet18", pretrained=False, input_size=64, device=where)
+              for where in ("cuda", "cpu")}
+    for key in OBJECTIVE_KEYS:
+        kw = {"epoch": 2, **OBJECTIVE_SMALL.get(key, {})}
+        if key == "aa":
+            kw["input_dir"] = anchors_a
+        labels = pairs if key in OBJECTIVE_TARGETED else ys
+        deltas = {}
+        for where, model in models.items():
+            atk = tt.load_attack_class(key)(model_name=model, device=where, **kw)
+            deltas[where] = atk(xs, labels,
+                                generator=torch.Generator().manual_seed(42)).cpu().numpy()
+        agree = float((np.sign(deltas["cuda"]) == np.sign(deltas["cpu"])).mean())
+        check(agree > 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        check(0 < np.abs(deltas["cuda"]).max() <= atk.eps + 1e-6,
+              f"{key}: |delta|inf on the card")
+        print(f"[13a objective] {key}: ResNet-18 64², batch 2, fp32: delta sign agreement "
+              f"card vs CPU {agree:.6f}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del models
+
+    # (b) full width
+    surrogate = make_model("resnet50", device="cuda")
+    surrogate.module.to(torch.bfloat16)
+    surrogate.compute_dtype = torch.bfloat16
+    x = torch.from_numpy(np.random.RandomState(43).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        logits0 = surrogate.apply(x)
+    y = logits0.argmax(-1)
+    pairs = torch.stack([y, (y + 500) % 1000], dim=1)
+    anchors_b = write_anchors(os.path.join(work, "anchors_b"),
+                              sorted(set(pairs[:, 1].tolist())))
+    launches, total = {}, 0.0
+    for key in OBJECTIVE_KEYS:
+        kw = {"input_dir": anchors_b} if key == "aa" else {}
+        atk = tt.load_attack_class(key)(model_name=surrogate, compute_dtype="bfloat16",
+                                        device="cuda", **kw)
+        labels = pairs if atk.targeted else y
+        ce_labels = pairs[:, 1] if atk.targeted else y
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total += secs
+        launches[key] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        grad_evals = atk.grad_evals
+        want = objective_launches(key, atk)
+        check(launches[key] == want,
+              f"{key}: {launches[key]} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{key}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= atk.eps + 1e-6, f"{key}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{key}: x + delta leaves [0, 1]")
+        what, value, way = objective_of(key, atk, x, atk.prepare_labels(labels),
+                                        torch.Generator(device=dev).manual_seed(44))
+        before, after = value(x), value(adv)
+        with torch.no_grad():
+            ce0 = float(softmax_cross_entropy(logits0, ce_labels).mean())
+            ce1 = float(softmax_cross_entropy(surrogate.apply(adv), ce_labels).mean())
+        check((after - before) * way > 0,
+              f"{key}: its objective ({what}) did not {'rise' if way > 0 else 'fall'}: "
+              f"{before} -> {after}")
+        print(f"[13b objective] {key}: ResNet-50 bf16, batch {GRADIENT_BATCH}, 224²: "
+              f"{grad_evals} gradient evaluations (batches of {GRADIENT_BATCH}), "
+              f"{launches[key]} update-kernel launches, {secs:.3f} s, "
+              f"{GRADIENT_BATCH / secs:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {linf * 255:.4f}, {what} {before:.6g} -> {after:.6g} "
+              f"({'rose' if way > 0 else 'fell'}), CE {ce0:.4f} -> {ce1:.4f} on {smi}")
+        print(json.dumps({"objective_key": key, "grad_evals": grad_evals,
+                          "launches": launches[key], "seconds": secs,
+                          "img_per_s": GRADIENT_BATCH / secs, "peak_gib": peak,
+                          "objective": what, "value": [before, after], "ce": [ce0, ce1],
+                          "targeted": atk.targeted, "reduced": {}}))
+        del atk, delta, adv
+        torch.cuda.empty_cache()
+    print(f"[13b objective] {len(OBJECTIVE_KEYS)} keys in {total:.1f} s of attack")
     return launches
 
 
@@ -815,6 +1054,10 @@ def main() -> None:
 
     # 12. the input-transformation keys, ANDA and MUMODIG
     input_launches = run_input_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 13. the feature-tap API and the advanced-objective keys
+    objective_launches_ = run_objective_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -828,6 +1071,7 @@ def main() -> None:
          "replaces": "transferattack_tpu/ops/pallas_update.py:33",
          "launches": launches, "launches_cli": cli_launches,
          "launches_gradient": gradient_launches, "launches_input": input_launches,
+         "launches_objective": objective_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

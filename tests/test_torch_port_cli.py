@@ -272,6 +272,26 @@ def test_cli_input_transformation_key_stays_within_eps(cli_runs, monkeypatch):
     assert json.load(open(out / "attack_meta.json"))["attack"] == "dim"
 
 
+def test_cli_advanced_objective_key_stays_within_eps(cli_runs, monkeypatch):
+    """A feature-level key through the port's CLI: FIA's dropout copies at
+    ``layer2`` (``toy_cnn``'s ``stage2``) from the port's own generator, so
+    this holds the bounds, not JAX's pixels."""
+    from transferattack_torch import main as tmain
+
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(cli_runs / "weights"))
+    out = cli_runs / "port_fia"
+    tmain.main(["--attack", "fia", "--model", "toy_cnn", "--epoch", "2", "--batchsize", "4",
+                "--input_dir", str(cli_runs / "data"), "--output_dir", str(out),
+                "--device", "cpu"])
+    names = sorted(os.listdir(cli_runs / "data" / "images"))
+    port_px = np.stack([np.asarray(Image.open(out / n)) for n in names]).astype(int)
+    clean = np.stack([np.round(jdata.load_image(str(cli_runs / "data" / "images" / n)) * 255)
+                      for n in names])
+    assert port_px.shape == (8, 224, 224, 3)
+    assert 0 < np.abs(port_px - clean).max() <= 16
+    assert json.load(open(out / "attack_meta.json"))["attack"] == "fia"
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_cli_eval_rows_agree_with_jax(cli_runs, precision):
     jax_rows = open(cli_runs / f"eval_jax_{precision}" / "results_eval.txt").read()

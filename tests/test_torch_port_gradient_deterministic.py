@@ -39,9 +39,9 @@ def run_pair(key, pair, x, y, jax_seams=None, port_seams=None, eps=EPS, **kw):
     both deltas."""
     js, ts, _ = pair
     jcls, tcls = ta.load_attack_class(key), tt.load_attack_class(key)
-    if jax_seams:
-        jcls = type(jcls.__name__, (jcls,), jax_seams)
-        tcls = type(tcls.__name__, (tcls,), port_seams)
+    if jax_seams or port_seams:
+        jcls = type(jcls.__name__, (jcls,), jax_seams or {})
+        tcls = type(tcls.__name__, (tcls,), port_seams or {})
     kw = {"epoch": EPOCH, **kw}
     j = np.asarray(jcls(model_name=js, **kw)(x, y))
     t = tcls(model_name=ts, device="cpu", **kw)(x, y).numpy()

@@ -60,6 +60,30 @@ attack_zoo: Dict[str, Tuple[str, str]] = {
     "l2t": (".input_transformation.l2t", "L2T"),
     "ssm_h": (".input_transformation.ssm_tricks", "SSM_H"),
     "ssm_p": (".input_transformation.ssm_tricks", "SSM_P"),
+    "tap": (".advanced_objective.tap", "TAP"),
+    "ila": (".advanced_objective.ila", "ILA"),
+    "fia": (".advanced_objective.fia", "FIA"),
+    "rpa": (".advanced_objective.fia", "RPA"),
+    "fmaa": (".advanced_objective.fia", "FMAA"),
+    "bfa": (".advanced_objective.fia", "BFA"),
+    "naa": (".advanced_objective.naa", "NAA"),
+    "danaa": (".advanced_objective.naa", "DANAA"),
+    "taig": (".advanced_objective.taig", "TAIG"),
+    "fuzziness_tuned": (".advanced_objective.tap", "Fuzziness_Tuned"),
+    "ilpd": (".advanced_objective.ila", "ILPD"),
+    "logit": (".advanced_objective.logit", "LOGIT"),
+    "logit_margin": (".advanced_objective.logit", "Logit_Margin"),
+    "potrip": (".advanced_objective.logit", "POTRIP"),
+    "aa": (".advanced_objective.aa", "AA"),
+    "ir": (".advanced_objective.ir", "IR"),
+    "p2fa": (".advanced_objective.ir", "P2FA"),
+    "trap": (".advanced_objective.ir", "TRAP"),
+    "ata": (".advanced_objective.cfm", "ATA"),
+    "mfaa": (".advanced_objective.cfm", "MFAA"),
+    "yaila": (".advanced_objective.cfm", "YAILA"),
+    "cfm": (".advanced_objective.cfm", "CFM"),
+    "ftm": (".advanced_objective.cfm", "FTM"),
+    "fft": (".advanced_objective.cfm", "FFT"),
 }
 
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+import re
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,34 +121,111 @@ class Surrogate:
     # input to this dtype and returns fp32 logits
     compute_dtype: Optional[torch.dtype] = None
 
-    def apply(self, x):
-        cd = self.compute_dtype
-        if cd is not None and x.dtype == torch.float32:
-            return self.module(x.to(cd)).float()
-        return self.module(x)
+    def apply(self, x, tap_fns: Optional[Dict[str, Callable]] = None):
+        """Logits of NHWC ``x``.  ``tap_fns`` maps a tap to a function that
+        replaces that activation in the forward graph (JAX's ``tap_fns``):
+        it sees and returns the activation in NHWC, in the compute dtype."""
+        return self.features(x, (), tap_fns)[0]
+
+    def features(self, x, layers: Sequence[str] = (),
+                 tap_fns: Optional[Dict[str, Callable]] = None):
+        """(logits, {layer: activation}) in one forward.
+
+        Each activation is the tensor the rest of the forward reads, in NHWC
+        and in the compute dtype, after its tap function if it has one, so
+        ``torch.autograd.grad(loss, feats[layer])`` is the feature gradient
+        that JAX takes at a zero offset added there (the reference's
+        backward hook).  Under grad mode it requires grad even where
+        nothing before it does.  Forward hooks on the tapped modules do the
+        work and are removed on the way out; each permutes the module's
+        NCHW output (``channels_last``, so the NHWC view is a plain one) to
+        NHWC and back.  Logits come back in fp32.
+        """
+        tap_fns = tap_fns or {}
+        taken: Dict[str, torch.Tensor] = {}
+
+        def hook(name, fn, keep):
+            def run(module, inputs, out):
+                f = out.permute(0, 2, 3, 1)
+                if fn is not None:
+                    f = fn(f).to(out.dtype)
+                if keep:
+                    if torch.is_grad_enabled() and not f.requires_grad:
+                        f = f.detach().requires_grad_(True)
+                    taken[name] = f
+                return f.permute(0, 3, 1, 2)
+            return run
+
+        handles = []
+        try:
+            for name in dict.fromkeys([*tap_fns, *layers]):
+                handles.append(self.tap_module(name).register_forward_hook(
+                    hook(name, tap_fns.get(name), name in layers)))
+            cd = self.compute_dtype
+            if cd is not None and x.dtype == torch.float32:
+                logits = self.module(x.to(cd)).float()
+            else:
+                logits = self.module(x)
+        finally:
+            for h in handles:
+                h.remove()
+        return logits, {name: taken[name] for name in layers}
 
     def feature(self, x, layer: str):
-        """(logits, feature) at a tap named as the reference names it, the
-        feature in JAX's NHWC layout.  ``layer`` is a backbone module path
-        (``layer3``, ``layer2.3``, torchvision's names), or else the JAX
-        tap key it maps to (``layer2`` → ``stage2``, as ``toy_cnn`` names
-        its stage outputs).  A forward hook takes the module's output."""
-        mod = self.tap_module(layer)
-        taken = []
-        handle = mod.register_forward_hook(lambda m, i, out: taken.append(out))
-        try:
-            logits = self.apply(x)
-        finally:
-            handle.remove()
-        return logits, taken[-1].float().permute(0, 2, 3, 1)
+        """(logits, feature) at a tap named as the reference names it
+        (``layer3``, ``layer2.3``) or as JAX keys it (``stage3``,
+        ``layer2_3``), the feature in NHWC and fp32."""
+        logits, feats = self.features(x, (layer,))
+        return logits, feats[layer].float()
+
+    def apply_with_feats(self, x, layer_filter: Union[str, Sequence[str]]):
+        """(logits, {tap: feature}) for every tap whose JAX key contains
+        ``layer_filter`` (or one of several), features in NHWC and fp32, as
+        JAX's ``apply_with_feats`` returns them."""
+        filters = (layer_filter,) if isinstance(layer_filter, str) else tuple(layer_filter)
+        names = [k for k in self.tap_keys() if any(f in k for f in filters)]
+        logits, feats = self.features(x, names)
+        return logits, {k: v.float() for k, v in feats.items()}
+
+    def feature_shape(self, x_shape, layer: str) -> Tuple[int, ...]:
+        """Shape of a tap's activation for inputs of ``x_shape``, from one
+        forward of a single image."""
+        param = next(self.module.parameters())
+        one = torch.zeros((1,) + tuple(x_shape[1:]), device=param.device)
+        with torch.no_grad():
+            shape = self.features(one, (layer,))[1][layer].shape
+        return (x_shape[0],) + tuple(shape[1:])
+
+    def tap_keys(self) -> List[str]:
+        """JAX's key of every tap of the backbone: the stem conv ``conv1``,
+        each stage ``stage{i}`` and each block ``layer{i}_{j}``."""
+        keys = [tap_key(n) for n, _ in self.module.backbone.named_modules()]
+        return [k for k in keys if k == "conv1" or re.fullmatch(r"stage\d+|layer\d+_\d+", k)]
 
     def tap_module(self, layer: str) -> nn.Module:
+        """The module whose output is the tap ``layer``, in either naming."""
         modules = dict(self.module.backbone.named_modules())
         name = layer.replace(" ", ".").strip()
-        for cand in (name, tap_key(name)):
+        for cand in (name, tap_key(name), reference_name(name)):
             if cand and cand in modules:
                 return modules[cand]
         raise KeyError(f"No feature {layer!r} in {type(self.module.backbone).__name__}")
+
+
+def find_feature(feats: Dict[str, torch.Tensor], key: str):
+    """The feature ``key`` of an :meth:`Surrogate.apply_with_feats` dict, or
+    None (JAX's ``find_feature`` over its intermediates tree)."""
+    return feats.get(key)
+
+
+def reference_name(key: str) -> str:
+    """The reference's module path of a JAX tap key: ``stage2`` → ``layer2``,
+    ``layer2_3`` → ``layer2.3``; anything else unchanged."""
+    m = re.fullmatch(r"stage(\d+)", key)
+    if m:
+        return f"layer{m.group(1)}"
+    m = re.fullmatch(r"(layer\d+)_(\d+)", key)
+    return f"{m.group(1)}.{m.group(2)}" if m else key
 
 
 def tap_key(reference_layer: str) -> str:

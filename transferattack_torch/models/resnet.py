@@ -4,8 +4,11 @@ Module names are torchvision's (``layer1.0.downsample.0``), so a PyTorch
 ``state_dict`` loads natively and the JAX package's weights load through
 :mod:`transferattack_torch.utils.bridge`.  BatchNorm runs in eval mode;
 :func:`fold_bn` folds it into the convs, in place and exactly.  The
-gradient-surgery options of the JAX ResNet (``SurgeryConfig``, taps, LLTA
-gammas) belong to attacks that are not ported yet.
+JAX ResNet's taps (``conv1``, ``stage{i}``, ``layer{i}_{j}``) are these
+modules' outputs, read or replaced by forward hooks
+(:meth:`~transferattack_torch.models.Surrogate.features`); its
+gradient-surgery options (``SurgeryConfig``, LLTA gammas) belong to attacks
+that are not ported yet.
 """
 from __future__ import annotations
 
@@ -98,12 +101,12 @@ class ResNet(nn.Module):
                 blocks.append(block_cls(inplanes, planes, stride, down, **extra))
                 inplanes = planes * exp
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        self.n_stages = len(stage_sizes)
+        self.stage_sizes = tuple(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
 
     def forward(self, x):
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
-        for i in range(self.n_stages):
+        for i in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{i + 1}")(x)
         return self.fc(x.mean(dim=(2, 3)))
 

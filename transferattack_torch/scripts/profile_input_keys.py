@@ -3,7 +3,8 @@ one CUDA card.
 
     python -m transferattack_torch.scripts.profile_input_keys [KEY ...] [--out DIR]
 
-Each key (default: the 19 of ``chip_smoke.py`` phase 12) at full width:
+Each key (default: the 19 of ``chip_smoke.py`` phase 12; any other
+registry key but AA, which needs an anchor set, may be named) at full width:
 ResNet-50, bf16 compute, batch 32, 224², seeded random weights and inputs,
 official hyperparameters except OPS at one iteration.  A cold call (the
 first at the key's shapes) is timed, then a warm call runs under
