@@ -80,7 +80,20 @@ random weights.  Phases:
     it), exactly the update-kernel launches its code implies (0 for P2FA
     and YAILA, whose steps clip on their own, and on TRAP's second phase,
     BFA's warm-up and FFT's fine-tune), and its gradient evaluations,
-    images per second and peak memory.
+    images per second and peak memory;
+14. the ResNet gradient surgery and the 18 CNN keys of model_related: (a)
+    each on the card and on the CPU, fp32 with TF32 off, ResNet-18 at 64²,
+    batch 2, 2 iterations, short inner loops, one seeded CPU generator
+    handed to both calls: deltas agree in sign on > 99% of elements (MUP
+    by its conv masks and with the CPU's masks, AWT step by step by
+    gradient cosine > 0.99); (b) each at full width on its own default
+    surrogate (ResNet-50 bf16, ResNet-18 for MTA and DSM, Ghost once more
+    on Inception-v3 at 299²), batch 32, official hyperparameters but AWT's
+    SAM rate (printed as ``reduced``), labels each surrogate's own
+    predictions: bounds, a finite delta, its objective risen (CE, AGS's
+    feature dissimilarity), exactly the update-kernel launches its code
+    implies, and its gradient evaluations, images per second and peak
+    memory.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -98,6 +111,7 @@ import shutil
 import statistics
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -202,6 +216,24 @@ OBJECTIVE_SMALL = {
     "yaila": {"ila_epoch": 2}, "fft": {"num_ens": 2, "ft_epoch": 2},
 }
 OBJECTIVE_TARGETED = ("logit", "logit_margin", "potrip", "aa", "cfm", "ftm", "fft")
+# phase 14: the CNN keys of model_related
+MODEL_RELATED_KEYS = ("sgm", "linbp", "iaa", "bpa", "ghost", "dhf", "mup", "awt", "faug", "dra",
+                      "mta", "dsm", "ags", "ma", "ana", "qaa", "metassa", "llta")
+# the keys whose constructor builds its surrogate from a name (surgery,
+# checkpoint, LLTA's decay net); the others take the shared one in 14b
+OWN_SURROGATE = ("sgm", "linbp", "iaa", "bpa", "ghost", "dra", "mta", "dsm", "ags", "ma",
+                 "qaa", "llta")
+# 14a: ResNet-18 at 64², 2 iterations, short inner loops
+MODEL_RELATED_SMALL = {
+    "awt": {"num_neighbor": 2, "sample_chunk": 2}, "metassa": {"n_sample": 2},
+    "llta": {"inner_iters": 1, "nsample": 2, "task_num": 1, "spt_size": 3, "qry_size": 2},
+}
+# 14b: the official hyperparameters but AWT's SAM rate, printed as
+# ``reduced``: on a seeded random ResNet-50 the loss's weight gradient has a
+# norm near 280, so one SAM step at the official 0.002 lifts the logits about
+# twentyfold, the softmax saturates and the input gradient is exactly 0
+# (JAX's arithmetic is the same; ``awt_at_official_rate`` shows it each run)
+MODEL_RELATED_CAPS = {"awt": {"sam_lr": 2e-4}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -361,26 +393,39 @@ def run_gradient_family(dev, smi) -> dict:
     return launches
 
 
-def map_step_cosine(models, xs, ys) -> float:
-    """DeCowA at its official rho, card against CPU: the least cosine over
-    two steps between the card's and the CPU's gradient, each card step
-    from the CPU's state, with the same draws."""
-    atks = {w: tt.load_attack_class("decowa")(model_name=m, epoch=2, device=w, num_warping=2)
-            for w, m in models.items()}
+def on_device(state, dev):
+    """``state`` with every tensor, those in its ``extra`` dicts too, on ``dev``."""
+    def move(v):
+        if isinstance(v, dict):
+            return {k: move(u) for k, u in v.items()}
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    return dataclasses.replace(state, delta=state.delta.to(dev),
+                               momentum=state.momentum.to(dev), extra=move(state.extra))
+
+
+def step_cosine(atks, xs, ys, seed: int, step_seed: int) -> float:
+    """The least cosine over two steps between the card's and the CPU's
+    gradient, each card step from the CPU's state, with the same draws."""
     x = {w: torch.from_numpy(xs).to(w) for w in atks}
     y = {w: torch.from_numpy(ys).to(w) for w in atks}
-    gens = {w: torch.Generator().manual_seed(22) for w in atks}
-    state = atks["cpu"].init_state(x["cpu"], y["cpu"], gens["cpu"])
+    gen = torch.Generator().manual_seed(seed)
+    state = atks["cpu"].init_state(x["cpu"], y["cpu"], gen)
     cos = 1.0
     for t in range(2):
-        on_card = dataclasses.replace(state, delta=state.delta.cuda(),
-                                      momentum=state.momentum.cuda())
-        g = {w: atks[w].get_grad(x[w], y[w], on_card if w == "cuda" else state,
-                                 torch.Generator().manual_seed(50 + t))[0].cpu()
+        g = {w: atks[w].get_grad(x[w], y[w], on_device(state, w),
+                                 torch.Generator().manual_seed(step_seed + t))[0].cpu()
              for w in atks}
         cos = min(cos, float((g["cuda"] * g["cpu"]).sum() / g["cuda"].norm() / g["cpu"].norm()))
-        state = atks["cpu"].step(x["cpu"], y["cpu"], state, gens["cpu"])
+        state = atks["cpu"].step(x["cpu"], y["cpu"], state, gen)
     return cos
+
+
+def map_step_cosine(models, xs, ys) -> float:
+    """DeCowA at its official rho, card against CPU (``step_cosine``)."""
+    atks = {w: tt.load_attack_class("decowa")(model_name=m, epoch=2, device=w, num_warping=2)
+            for w, m in models.items()}
+    return step_cosine(atks, xs, ys, 22, 50)
 
 
 def run_input_family(dev, smi) -> dict:
@@ -677,6 +722,173 @@ def _objective_family(dev, smi, work) -> dict:
         del atk, delta, adv
         torch.cuda.empty_cache()
     print(f"[13b objective] {len(OBJECTIVE_KEYS)} keys in {total:.1f} s of attack")
+    return launches
+
+
+def model_related_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call of ``key``, as its code
+    implies them: MetaSSA's n_sample inner steps and its outer one an
+    iteration, one an iteration for the rest."""
+    if key == "metassa":
+        return atk.epoch * (atk.n_sample + 1)
+    return atk.epoch
+
+
+def mup_card_vs_cpu(atks, xs, ys) -> tuple:
+    """MUP, card against CPU: the least mask agreement over the conv kernels
+    at the CPU's state after one step, and the delta sign agreement with the
+    card's masks taken from the CPU's at the card's own state.  A mask is an
+    order statistic of |w·∂L/∂w|, so a last-bit difference in a parameter
+    gradient can move an element across it, and a pruned ResNet-18 feels it."""
+    cpu, on_card = atks["cpu"], atks["cuda"]
+    x = {w: torch.from_numpy(xs).to(w) for w in atks}
+    y = {w: torch.from_numpy(ys).to(w) for w in atks}
+    state = cpu.step(x["cpu"], y["cpu"], cpu.init_state(x["cpu"], y["cpu"], None), None)
+    want = cpu._pruned_params(x["cpu"], y["cpu"], state)
+    got = on_card._pruned_params(x["cuda"], y["cuda"], dataclasses.replace(
+        state, delta=state.delta.cuda()))
+    masks = min(float(((got[k] != 0).cpu() == (want[k] != 0)).float().mean()) for k in want)
+
+    def cpu_masks(self, a, b, st):
+        ref = cpu._pruned_params(a.cpu(), b.cpu(), dataclasses.replace(st, delta=st.delta.cpu()))
+        return {k: w * (ref[k] != 0).to(a.device, w.dtype)
+                for k, w in self.model.parameters().items() if k in ref}
+
+    on_card._pruned_params = cpu_masks.__get__(on_card)
+    d = {w: atks[w](xs, ys, generator=torch.Generator().manual_seed(52)).cpu().numpy()
+         for w in atks}
+    return masks, float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+
+
+def awt_at_official_rate(atk, x, y) -> str:
+    """One SAM update of ``atk`` at AWT's official rate from the surrogate's
+    weights: the logits' largest magnitude before and after it, and the
+    input gradient's through the tuned weights."""
+    official = official_defaults("awt")["sam_lr"]
+    rate, atk.sam_lr = atk.sam_lr, official
+    try:
+        state = atk.init_state(x, y, None)
+        params = atk._sam_update(state.extra["params"], state.extra["sgd_buf"],
+                                 state.extra["grad_residue"], x, state.delta, y)[0]
+        with torch.no_grad():
+            before = float(atk.model.apply(x).abs().max())
+            after = float(atk.model.apply(x, params=params).abs().max())
+        grad = float(atk._grads_at(params, x[None], y).abs().max())
+    finally:
+        atk.sam_lr = rate
+    return (f"one SAM step at the official sam_lr {official:g}: max|logit| {before:.4g} -> "
+            f"{after:.4g}, max|input gradient| through the tuned weights {grad:.4g}")
+
+
+def run_model_related_family(dev, smi) -> dict:
+    """Phase 14; returns each key's update-kernel launches in its 14b call."""
+    # (a) the card against the CPU, one seeded CPU generator for both
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(51)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    for key in MODEL_RELATED_KEYS:
+        kw = {"epoch": 2, "input_size": 64, **MODEL_RELATED_SMALL.get(key, {})}
+        kw.update({"base_arch": "resnet18"} if key == "ags" else {"model_name": "resnet18"})
+        with warnings.catch_warnings():  # no checkpoints here: the base weights
+            warnings.simplefilter("ignore")
+            atks = {w: tt.load_attack_class(key)(device=w, **kw) for w in ("cuda", "cpu")}
+        if key == "mup":
+            masks, agree = mup_card_vs_cpu(atks, xs, ys)
+            check(masks >= 1 - 1e-4, f"mup: conv masks card vs CPU agree on {masks}")
+            extra = f"; conv masks agree on at least {masks:.6f} (with the CPU's masks:)"
+        elif key == "awt":
+            # a whole AWT run amplifies rounding (on the CPU alone, weights
+            # moved by 1e-6 part its 2-iteration delta to a sign agreement of
+            # 0.991), so it is held step by step, each from the CPU's state
+            cos = step_cosine(atks, xs, ys, 52, 53)
+            check(cos > 0.99, f"awt: gradient cosine card vs CPU {cos}")
+            print(f"[14a model_related] awt: ResNet-18 64², batch 2, fp32, each step from the "
+                  f"CPU's state: gradient cosine card vs CPU {cos:.8f} (at least)")
+            continue
+        else:
+            d = {w: atks[w](xs, ys, generator=torch.Generator().manual_seed(52)).cpu().numpy()
+                 for w in atks}
+            agree, extra = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean()), ""
+        check(agree > 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        print(f"[14a model_related] {key}: ResNet-18 64², batch 2, 2 iterations, fp32{extra} "
+              f"delta sign agreement card vs CPU {agree:.6f}")
+        del atks
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (b) full width, each key at its own default model
+    shared = make_model("resnet50", device="cuda")
+    shared.module.to(torch.bfloat16)
+    shared.compute_dtype = torch.bfloat16
+    x224 = torch.from_numpy(np.random.RandomState(53).rand(GRADIENT_BATCH, 224, 224, 3)
+                            .astype(np.float32)).to(dev)
+    x299 = torch.from_numpy(np.random.RandomState(54).rand(GRADIENT_BATCH, 299, 299, 3)
+                            .astype(np.float32)).to(dev)
+    launches, total = {}, 0.0
+    runs = [(k, {}) for k in MODEL_RELATED_KEYS] + [("ghost", {"model_name": "inc_v3"})]
+    for key, kw in runs:
+        kw = {**kw, **MODEL_RELATED_CAPS.get(key, {})}
+        if key not in OWN_SURROGATE:
+            kw["model_name"] = shared
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            atk = tt.load_attack_class(key)(compute_dtype="bfloat16", device="cuda", **kw)
+        x = x299 if kw.get("model_name") == "inc_v3" else x224
+        model = atk.model
+        with torch.no_grad():
+            logits0 = model.apply(x)
+        y = logits0.argmax(-1)
+        if key == "awt":
+            print(f"[14b model_related] awt: {awt_at_official_rate(atk, x, y)} on {smi}")
+            atk.grad_evals = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total += secs
+        n = launches[key if x is x224 else f"{key}_inc_v3"] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = model_related_launches(key, atk)
+        check(n == want, f"{key}: {n} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{key}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= atk.eps + 1e-6, f"{key}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{key}: x + delta leaves [0, 1]")
+        with torch.no_grad():
+            ce0 = float(softmax_cross_entropy(logits0, y).mean())
+            ce1 = float(softmax_cross_entropy(model.apply(adv), y).mean())
+            if key == "ags":
+                mid0 = model.feature(x, atk.feature_layer)[1]
+                what = f"feature dissimilarity at {atk.feature_layer}"
+                before = float(atk.dissimilarity(x, mid0).mean())
+                after = float(atk.dissimilarity(adv, mid0).mean())
+            else:
+                what, before, after = "CE", ce0, ce1
+        check(after > before, f"{key}: its objective ({what}) did not rise: {before} -> {after}")
+        arch = ("Inception-v3 bf16, 299²" if x is x299 else
+                f"{'ResNet-18' if key in ('mta', 'dsm') else 'ResNet-50'} bf16, 224²")
+        caps = MODEL_RELATED_CAPS.get(key)
+        reduced = ("; reduced: " + ", ".join(
+            f"{k} {official_defaults(key)[k]} -> {v}" for k, v in caps.items()) if caps else "")
+        print(f"[14b model_related] {key}: {arch}, batch {GRADIENT_BATCH}: {atk.grad_evals} "
+              f"gradient evaluations (batches of {GRADIENT_BATCH}), {n} update-kernel launches, "
+              f"{secs:.3f} s, {GRADIENT_BATCH / secs:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {linf * 255:.4f}, {what} {before:.6g} -> {after:.6g} (rose), "
+              f"CE {ce0:.4f} -> {ce1:.4f} on {smi}{reduced}")
+        print(json.dumps({"model_related_key": key, "model": arch, "grad_evals": atk.grad_evals,
+                          "launches": n, "seconds": secs, "img_per_s": GRADIENT_BATCH / secs,
+                          "peak_gib": peak, "objective": what, "value": [before, after],
+                          "ce": [ce0, ce1], "reduced": caps or {}}))
+        del atk, model, delta, adv, logits0
+        torch.cuda.empty_cache()
+    print(f"[14b model_related] {len(runs)} calls in {total:.1f} s of attack")
     return launches
 
 
@@ -1058,6 +1270,10 @@ def main() -> None:
 
     # 13. the feature-tap API and the advanced-objective keys
     objective_launches_ = run_objective_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 14. the ResNet gradient surgery and the CNN keys of model_related
+    model_related_launches_ = run_model_related_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -1072,6 +1288,7 @@ def main() -> None:
          "launches": launches, "launches_cli": cli_launches,
          "launches_gradient": gradient_launches, "launches_input": input_launches,
          "launches_objective": objective_launches_,
+         "launches_model_related": model_related_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

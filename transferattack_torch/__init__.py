@@ -84,6 +84,24 @@ attack_zoo: Dict[str, Tuple[str, str]] = {
     "cfm": (".advanced_objective.cfm", "CFM"),
     "ftm": (".advanced_objective.cfm", "FTM"),
     "fft": (".advanced_objective.cfm", "FFT"),
+    "sgm": (".model_related.sgm", "SGM"),
+    "linbp": (".model_related.sgm", "LinBP"),
+    "iaa": (".model_related.sgm", "IAA"),
+    "bpa": (".model_related.sgm", "BPA"),
+    "ghost": (".model_related.sgm", "GhostNetwork_MIFGSM"),
+    "dhf": (".model_related.dhf", "DHF_MIFGSM"),
+    "mup": (".model_related.weight_attacks", "MUP"),
+    "awt": (".model_related.weight_attacks", "AWT"),
+    "faug": (".model_related.weight_attacks", "FAUG"),
+    "dra": (".model_related.checkpoint_surrogates", "DRA"),
+    "mta": (".model_related.checkpoint_surrogates", "MTA"),
+    "dsm": (".model_related.checkpoint_surrogates", "DSM"),
+    "ags": (".model_related.checkpoint_surrogates", "AGS"),
+    "ma": (".model_related.checkpoint_surrogates", "MA"),
+    "ana": (".model_related.checkpoint_surrogates", "ANA"),
+    "qaa": (".model_related.checkpoint_surrogates", "QAA"),
+    "metassa": (".model_related.metassa", "MetaSSA"),
+    "llta": (".model_related.llta", "LLTA"),
 }
 
 

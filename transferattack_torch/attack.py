@@ -144,14 +144,14 @@ class Attack:
         """Zero or random-start init."""
         if not self.random_start:
             return torch.zeros_like(x)
+        # drawn on the generator's device, so a CPU generator serves the card
         if self.norm == "linfty":
-            delta = (torch.rand(x.shape, generator=gen, device=x.device)
-                     * (2 * self.eps) - self.eps)
+            delta = draw(gen, torch.rand, x.shape, device=x.device) * (2 * self.eps) - self.eps
         else:
-            delta = torch.randn(x.shape, generator=gen, device=x.device)
+            delta = draw(gen, torch.randn, x.shape, device=x.device)
             flat = delta.reshape(x.shape[0], -1)
             n = flat.norm(dim=1, keepdim=True)
-            r = torch.rand((x.shape[0], 1), generator=gen, device=x.device)
+            r = draw(gen, torch.rand, (x.shape[0], 1), device=x.device)
             delta = (flat / (n + 1e-12) * r * self.eps).reshape(x.shape)
         return torch.clamp(x + delta, img_min, img_max) - x
 

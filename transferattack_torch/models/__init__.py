@@ -104,9 +104,9 @@ class WrappedModel(nn.Module):
         self.preprocess = Preprocess(size, mean, std)
         self.backbone = backbone
 
-    def forward(self, x):
+    def forward(self, x, **backbone_kwargs):
         # a contiguous NHWC tensor permuted to NCHW is channels_last: no copy
-        return self.backbone(self.preprocess(x).permute(0, 3, 1, 2))
+        return self.backbone(self.preprocess(x).permute(0, 3, 1, 2), **backbone_kwargs)
 
 
 @dataclasses.dataclass
@@ -121,14 +121,26 @@ class Surrogate:
     # input to this dtype and returns fp32 logits
     compute_dtype: Optional[torch.dtype] = None
 
-    def apply(self, x, tap_fns: Optional[Dict[str, Callable]] = None):
+    def apply(self, x, tap_fns: Optional[Dict[str, Callable]] = None,
+              params: Optional[Dict[str, torch.Tensor]] = None, **backbone_kwargs):
         """Logits of NHWC ``x``.  ``tap_fns`` maps a tap to a function that
         replaces that activation in the forward graph (JAX's ``tap_fns``):
-        it sees and returns the activation in NHWC, in the compute dtype."""
-        return self.features(x, (), tap_fns)[0]
+        it sees and returns the activation in NHWC, in the compute dtype.
+        ``params`` (names of :meth:`parameters`) stand in for the module's
+        own, which stay frozen and untouched: ``torch.func.functional_call``,
+        so that a loss is differentiable in them (MUP, AWT).  Other keywords
+        go to the backbone's ``forward``: ResNet's LLTA ``gammas``, a ghost
+        network's ``ghost`` draws."""
+        return self.features(x, (), tap_fns, params, **backbone_kwargs)[0]
+
+    def parameters(self) -> Dict[str, torch.Tensor]:
+        """The module's parameters by name, detached: a dict to edit and
+        pass back to :meth:`apply` as ``params``."""
+        return {k: v.detach() for k, v in self.module.named_parameters()}
 
     def features(self, x, layers: Sequence[str] = (),
-                 tap_fns: Optional[Dict[str, Callable]] = None):
+                 tap_fns: Optional[Dict[str, Callable]] = None,
+                 params: Optional[Dict[str, torch.Tensor]] = None, **backbone_kwargs):
         """(logits, {layer: activation}) in one forward.
 
         Each activation is the tensor the rest of the forward reads, in NHWC
@@ -162,10 +174,16 @@ class Surrogate:
                 handles.append(self.tap_module(name).register_forward_hook(
                     hook(name, tap_fns.get(name), name in layers)))
             cd = self.compute_dtype
-            if cd is not None and x.dtype == torch.float32:
-                logits = self.module(x.to(cd)).float()
+            lowered = cd is not None and x.dtype == torch.float32
+            if lowered:
+                x = x.to(cd)
+            if params is None:
+                logits = self.module(x, **backbone_kwargs)
             else:
-                logits = self.module(x)
+                logits = torch.func.functional_call(self.module, params, (x,),
+                                                    backbone_kwargs, strict=False)
+            if lowered:
+                logits = logits.float()
         finally:
             for h in handles:
                 h.remove()
@@ -312,6 +330,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                         p.zero_()
 
 
+# the reference's short names (ghost networks, DHF)
+_ALIASES = {"inc_v3": "inception_v3", "inc_res": "inception_resnet_v2",
+            "inc_res_v2": "inception_resnet_v2"}
+
+
 def make_model(
     name: str,
     pretrained: bool = True,
@@ -329,6 +352,7 @@ def make_model(
     the same model on every device.
     """
     dev = resolve_device(device)
+    name = _ALIASES.get(name, name)
     if name not in _MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {list_models()}")
     builder, size, mean, std, sized = _MODEL_REGISTRY[name]

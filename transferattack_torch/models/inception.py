@@ -3,8 +3,15 @@ names, 299² input, Inception mean and std.
 
 No auxiliary head: the JAX model has none, and torchvision's runs only in
 training, so a torchvision ``state_dict`` loads once its ``AuxLogits.*``
-keys are dropped.  The ghost-network dropout and ``tap_fns`` of the JAX
-model belong to attacks that are not ported yet.
+keys are dropped.  The JAX model's ``tap_fns`` are forward hooks on these
+modules (:meth:`~transferattack_torch.models.Surrogate.features`).
+
+Ghost networks: with ``ghost_keep_prob`` < 1, every stem conv and Mixed
+block's output is dropped out at that keep rate, at inference too (the
+reference's functional dropout ignores eval mode).  The attack makes the
+0/1 keep draws and passes them to ``forward`` as ``ghost("dropout", name,
+shape)``, shape NHWC as JAX draws them.  A tap hook on such a module sees
+the output before its dropout.
 """
 from __future__ import annotations
 
@@ -120,10 +127,17 @@ class InceptionE(nn.Module):
         return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(avgpool3(x))], 1)
 
 
+_GHOST_SITES = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                "Conv2d_4a_3x3", "Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
+                "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b",
+                "Mixed_7c")
+
+
 class InceptionV3(nn.Module):
-    def __init__(self, num_classes: int = 1000):
+    def __init__(self, num_classes: int = 1000, ghost_keep_prob: float = 1.0):
         super().__init__()
         self.num_classes = num_classes
+        self.ghost_keep_prob = float(ghost_keep_prob)
         self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
         self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
         self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1)
@@ -142,14 +156,15 @@ class InceptionV3(nn.Module):
         self.Mixed_7c = InceptionE(2048)
         self.fc = nn.Linear(2048, num_classes)
 
-    def forward(self, x):
-        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
-        x = F.max_pool2d(x, 3, 2)
-        x = F.max_pool2d(self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x)), 3, 2)
-        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b",
-                     "Mixed_6c", "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b",
-                     "Mixed_7c"):
+    def forward(self, x, ghost=None):
+        for name in _GHOST_SITES:
             x = getattr(self, name)(x)
+            if ghost is not None and self.ghost_keep_prob < 1.0:
+                B, C, H, W = x.shape
+                mask = ghost("dropout", name, (B, H, W, C)).to(x.dtype).permute(0, 3, 1, 2)
+                x = x * mask / self.ghost_keep_prob
+            if name in ("Conv2d_2b_3x3", "Conv2d_4a_3x3"):
+                x = F.max_pool2d(x, 3, 2)
         return self.fc(x.mean(dim=(2, 3)))
 
 

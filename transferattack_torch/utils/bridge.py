@@ -13,7 +13,8 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   other leaves (``cls_token``, ``relative_position_bias_table``, ...) keep
   their names;
 * module paths: ``layerN_j`` → ``layerN.j``, ``features_N`` →
-  ``features.N`` (likewise ``classifier``, ``blocks``, ``stageN``),
+  ``features.N`` (likewise ``classifier``, ``blocks``, ``stageN``, and
+  ``net`` of ANA's alignment net),
   ``downsample_conv``/``downsample_bn`` → ``downsample.0``/``.1``,
   ``patch_embed`` → ``patch_embed.proj``, ``patch_norm`` →
   ``patch_embed.norm``, ``layers_i_blocks_j`` → ``layers.i.blocks.j`` (and
@@ -37,7 +38,7 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|stage\d+|conv)_(\d+)")
+_INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|stage\d+|conv|net)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
