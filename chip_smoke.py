@@ -93,7 +93,20 @@ random weights.  Phases:
     predictions: bounds, a finite delta, its objective risen (CE, AGS's
     feature dissimilarity), exactly the update-kernel launches its code
     implies, and its gradient evaluations, images per second and peak
-    memory.
+    memory;
+15. the ViT gradient surgery and the ten ViT keys of model_related: (a) each
+    on the card and on the CPU, fp32 with TF32 off, a narrow ViT of the
+    official depth (dim 64, 12 blocks, 2 heads) at 32², TGR once more on a
+    narrow CaiT (its class attention hooked), batch 2, 2 iterations, few
+    draws, one seeded CPU generator handed to both calls: deltas agree in
+    sign on at least 99% of elements; (b) each at full width on its own
+    default surrogate (ViT-B/16 bf16, 224²; TGR once more on CaiT-S24;
+    Ghost and DHF on Inception-ResNet-v2 at 299²), batch 32, official
+    hyperparameters, labels each surrogate's own predictions: bounds (ATA-
+    ViT, a patch attack, [0, 1] only), a finite delta, its objective risen
+    (CE; ATA-ViT's log(1 − p_y)), exactly the update-kernel launches its
+    code implies (none for ATA-ViT's Adam), and its gradient evaluations,
+    images per second, ms an evaluation and peak memory.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -126,8 +139,17 @@ from transferattack_torch.attack import Attack, softmax_cross_entropy
 from transferattack_torch.config import official_defaults
 from transferattack_torch.gradient.mef import MEF
 from transferattack_torch.gradient.mifgsm import MIFGSM
-from transferattack_torch.models import init_weights, make_model
+from transferattack_torch.models import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    Surrogate,
+    WrappedModel,
+    init_weights,
+    make_model,
+)
+from transferattack_torch.models.cait import Cait
 from transferattack_torch.models.resnet import Bottleneck, fold_bn
+from transferattack_torch.models.vit import VisionTransformer, ViTSurgery
 from transferattack_torch.ops import _build
 from transferattack_torch.ops import fused_bwd as fb
 from transferattack_torch.ops.fused_update import (
@@ -234,6 +256,16 @@ MODEL_RELATED_SMALL = {
 # twentyfold, the softmax saturates and the input gradient is exactly 0
 # (JAX's arithmetic is the same; ``awt_at_official_rate`` shows it each run)
 MODEL_RELATED_CAPS = {"awt": {"sam_lr": 2e-4}}
+# phase 15: the ViT keys of model_related
+VIT_KEYS = ("tgr", "pna_patchout", "sapr", "fdap", "vdc", "fpr", "att", "setr", "ll2s",
+            "ata_vit")
+# 15a: a narrow ViT of the official depth (dim 64, 12 blocks, 2 heads, patch 16,
+# 32²: FDAP's blocks 5-9 and FPR's 0, 1, 4, 9, 11 exist), a narrow CaiT for
+# TGR's class attention; 2 iterations (ATA-ViT: 2 Adam steps), few draws
+VIT_NARROW = {"patch_size": 16, "dim": 64, "depth": 12, "num_heads": 2}
+CAIT_NARROW = {"patch_size": 16, "dim": 64, "depth": 2, "depth_token_only": 2, "num_heads": 2}
+VIT_SMALL = {"pna_patchout": {"sample_num_patches": 2}, "att": {"sample_num_patches": 2},
+             "ll2s": {"num_scale": 2, "ops_num": 1, "num_robust_tokens": 3}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -892,6 +924,135 @@ def run_model_related_family(dev, smi) -> dict:
     return launches
 
 
+def vit_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call of ``key``, as its code
+    implies them: ATA-ViT steps by its own Adam (none), the others one an
+    iteration."""
+    return 0 if key == "ata_vit" else atk.epoch
+
+
+def narrow_surrogate(builder, kw, dev):
+    """A narrow ViT-family surrogate at 32², seeded weights, on ``dev``."""
+    module = WrappedModel(builder(num_classes=1000, img_size=32, **kw), 32,
+                          IMAGENET_MEAN, IMAGENET_STD)
+    init_weights(module, torch.Generator().manual_seed(61))
+    module.eval().requires_grad_(False).to(dev)
+    return Surrogate(name="narrow", module=module, input_size=32)
+
+
+def plain_view(model):
+    """``model`` with no surgery in its forward (SAPR's draws a generator)."""
+    return dataclasses.replace(model, forward_kwargs=(
+        {"surgery": ViTSurgery()} if hasattr(model.module.backbone, "surgery") else {}))
+
+
+def vit_objective(key: str, atk, x, y, adv) -> tuple:
+    """(what, before, after) of the objective ``key`` raises, on the plain
+    surrogate: log(1 − p_y) for ATA-ViT (its Adam lowers −log(1 − p_y)), CE
+    for the rest."""
+    plain = plain_view(atk.model)
+    with torch.no_grad():
+        if key == "ata_vit":
+            ones = torch.ones_like(x[..., :1])
+            return ("log(1 - p_y)", -float(atk._patch_loss(x, x, ones, y)),
+                    -float(atk._patch_loss(x, adv, ones, y)))
+        return ("CE", float(softmax_cross_entropy(plain.apply(x), y).mean()),
+                float(softmax_cross_entropy(plain.apply(adv), y).mean()))
+
+
+def run_vit_family(dev, smi) -> dict:
+    """Phase 15; returns each call's update-kernel launches in 15b."""
+    # (a) the card against the CPU, one seeded CPU generator for both
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(61)
+    xs = rng.rand(2, 32, 32, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    narrow = {w: {"vit": narrow_surrogate(VisionTransformer, VIT_NARROW, w),
+                  "cait": narrow_surrogate(Cait, CAIT_NARROW, w)} for w in ("cuda", "cpu")}
+    for key, arch in [(k, "vit") for k in VIT_KEYS] + [("tgr", "cait")]:
+        kw = {"epoch": 2, **VIT_SMALL.get(key, {})}
+        with warnings.catch_warnings():  # SETR: no TRM checkpoint here
+            warnings.simplefilter("ignore")
+            atks = {w: tt.load_attack_class(key)(model_name=narrow[w][arch], device=w, **kw)
+                    for w in narrow}
+        d = {w: atks[w](xs, ys, generator=torch.Generator().manual_seed(62)).cpu().numpy()
+             for w in atks}
+        agree = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+        check(agree >= 0.99, f"{key} on the narrow {arch}: fp32 delta sign agreement card vs "
+              f"CPU {agree}")
+        print(f"[15a vit] {key}: narrow {'CaiT (class attention hooked)' if arch == 'cait' else 'ViT'} "
+              f"at 32², batch 2, 2 iterations, fp32: delta sign agreement card vs CPU {agree:.6f}")
+        del atks
+    del narrow
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (b) full width, each key at its own default surrogate
+    shared = make_model("vit_base_patch16_224", device="cuda")
+    x224 = torch.from_numpy(np.random.RandomState(63).rand(GRADIENT_BATCH, 224, 224, 3)
+                            .astype(np.float32)).to(dev)
+    x299 = torch.from_numpy(np.random.RandomState(64).rand(GRADIENT_BATCH, 299, 299, 3)
+                            .astype(np.float32)).to(dev)
+    launches, total, incres = {}, 0.0, None
+    runs = ([(k, {}) for k in VIT_KEYS] + [("tgr", {"model_name": "cait_s24_224"})]
+            + [("ghost", {"model_name": "inc_res"}), ("dhf", {"model_name": "inc_res"})])
+    for key, kw in runs:  # official hyperparameters: no cap is needed
+        kw = dict(kw)
+        name = kw.get("model_name", "vit_base_patch16_224")
+        if key == "dhf":  # the Ghost call's Inception-ResNet-v2, without ghost draws
+            kw["model_name"] = incres
+        elif "model_name" not in kw:
+            kw["model_name"] = shared
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            atk = tt.load_attack_class(key)(compute_dtype="bfloat16", device="cuda", **kw)
+        if key == "ghost":
+            incres = atk.model
+        x = x299 if name == "inc_res" else x224
+        with torch.no_grad():
+            y = plain_view(atk.model).apply(x).argmax(-1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total += secs
+        tag = key if name == "vit_base_patch16_224" else f"{key}_{name}"
+        n = launches[tag] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = vit_launches(key, atk)
+        check(n == want, f"{tag}: {n} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{tag}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        bound = 1.0 if key == "ata_vit" else atk.eps  # a patch attack: unbounded in its mask
+        check(0.0 < linf <= bound + 1e-6, f"{tag}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{tag}: x + delta leaves [0, 1]")
+        what, before, after = vit_objective(key, atk, x, y, adv)
+        check(after > before, f"{tag}: its objective ({what}) did not rise: {before} -> {after}")
+        arch = {"vit_base_patch16_224": "ViT-B/16 bf16, 224²", "cait_s24_224": "CaiT-S24 bf16, "
+                "224²", "inc_res": "Inception-ResNet-v2 bf16, 299²"}[name]
+        print(f"[15b vit] {tag}: {arch}, batch {GRADIENT_BATCH}: {atk.grad_evals} gradient "
+              f"evaluations (batches of {GRADIENT_BATCH}), {n} update-kernel launches, "
+              f"{secs:.3f} s, {GRADIENT_BATCH / secs:.2f} img/s, "
+              f"{1e3 * secs / max(atk.grad_evals, 1):.1f} ms an evaluation, peak memory "
+              f"{peak:.2f} GiB, |delta|inf*255 = {linf * 255:.4f}, {what} {before:.6g} -> "
+              f"{after:.6g} (rose) on {smi}")
+        print(json.dumps({"vit_key": tag, "model": arch, "grad_evals": atk.grad_evals,
+                          "launches": n, "seconds": secs, "img_per_s": GRADIENT_BATCH / secs,
+                          "ms_per_eval": 1e3 * secs / max(atk.grad_evals, 1),
+                          "peak_gib": peak, "objective": what, "value": [before, after],
+                          "reduced": {}}))
+        del atk, delta, adv
+        torch.cuda.empty_cache()
+    print(f"[15b vit] {len(runs)} calls in {total:.1f} s of attack")
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -1274,6 +1435,10 @@ def main() -> None:
 
     # 14. the ResNet gradient surgery and the CNN keys of model_related
     model_related_launches_ = run_model_related_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 15. the ViT surgery and the ViT keys of model_related
+    vit_launches_ = run_vit_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -1289,6 +1454,7 @@ def main() -> None:
          "launches_gradient": gradient_launches, "launches_input": input_launches,
          "launches_objective": objective_launches_,
          "launches_model_related": model_related_launches_,
+         "launches_vit": vit_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

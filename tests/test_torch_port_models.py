@@ -42,12 +42,14 @@ def unflatten(flat):
     return tree
 
 
-def random_variables(module, size, seed=0):
+def random_variables(module, size, seed=0, inputs=None):
     """Seeded numpy weights for a Flax ``module``, in the flat layout:
     kernels at lecun-normal scale, small biases, and every BatchNorm moved
-    off the identity (statistics and affine parameters), so BN matters."""
-    shapes = flatten(jax.eval_shape(module.init, jax.random.PRNGKey(0),
-                                    jnp.zeros((1, size, size, 3))))
+    off the identity (statistics and affine parameters), so BN matters.
+    ``inputs``: the module's input, where it is not a (1, size, size, 3)
+    image."""
+    inputs = jnp.zeros((1, size, size, 3)) if inputs is None else inputs
+    shapes = flatten(jax.eval_shape(module.init, jax.random.PRNGKey(0), inputs))
     rng = np.random.RandomState(seed)
     flat = {}
     for k, s in sorted(shapes.items()):

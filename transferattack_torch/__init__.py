@@ -102,6 +102,16 @@ attack_zoo: Dict[str, Tuple[str, str]] = {
     "qaa": (".model_related.checkpoint_surrogates", "QAA"),
     "metassa": (".model_related.metassa", "MetaSSA"),
     "llta": (".model_related.llta", "LLTA"),
+    "tgr": (".model_related.vit_attacks", "TGR"),
+    "pna_patchout": (".model_related.vit_attacks", "PNA_PatchOut"),
+    "sapr": (".model_related.vit_attacks", "SAPR"),
+    "fdap": (".model_related.vit_attacks", "FDAP"),
+    "vdc": (".model_related.vit_attacks2", "VDC"),
+    "fpr": (".model_related.vit_attacks2", "FPR"),
+    "att": (".model_related.vit_attacks2", "ATT"),
+    "setr": (".model_related.vit_attacks2", "SETR"),
+    "ll2s": (".model_related.llta", "LL2S"),
+    "ata_vit": (".model_related.llta", "ATA_ViT"),
 }
 
 

@@ -103,9 +103,9 @@ class BPA(MIFGSM):
 
 class GhostNetwork_MIFGSM(MIFGSM):
     """Ghost networks: every forward samples a network of the ghost family.
-    ResNets scale each skip per channel by U(1 ± ghost_random_range);
-    Inception-v3 drops out (keep ghost_keep_prob) after every stem conv and
-    Mixed block.  Inception-ResNet-v2 is not ported yet."""
+    ResNets and Inception-ResNet-v2 scale each residual skip per channel by
+    U(1 ± ghost_random_range); Inception-v3 drops out (keep ghost_keep_prob)
+    after every stem conv and Mixed block."""
 
     def __init__(self, model_name="resnet50", ghost_keep_prob=0.994,
                  ghost_random_range=0.16, **kwargs):

@@ -120,6 +120,9 @@ class Surrogate:
     # set by Attack.__init__ for a low-precision forward: apply() casts fp32
     # input to this dtype and returns fp32 logits
     compute_dtype: Optional[torch.dtype] = None
+    # keywords every forward passes to the backbone (a ViT's ``surgery``:
+    # ``models.vit.with_surgery`` makes such a view of a surrogate)
+    forward_kwargs: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def apply(self, x, tap_fns: Optional[Dict[str, Callable]] = None,
               params: Optional[Dict[str, torch.Tensor]] = None, **backbone_kwargs):
@@ -130,7 +133,7 @@ class Surrogate:
         own, which stay frozen and untouched: ``torch.func.functional_call``,
         so that a loss is differentiable in them (MUP, AWT).  Other keywords
         go to the backbone's ``forward``: ResNet's LLTA ``gammas``, a ghost
-        network's ``ghost`` draws."""
+        network's ``ghost`` draws, a ViT's ``surgery`` or ``extra_tokens``."""
         return self.features(x, (), tap_fns, params, **backbone_kwargs)[0]
 
     def parameters(self) -> Dict[str, torch.Tensor]:
@@ -149,23 +152,25 @@ class Surrogate:
         that JAX takes at a zero offset added there (the reference's
         backward hook).  Under grad mode it requires grad even where
         nothing before it does.  Forward hooks on the tapped modules do the
-        work and are removed on the way out; each permutes the module's
+        work and are removed on the way out; each permutes a module's
         NCHW output (``channels_last``, so the NHWC view is a plain one) to
-        NHWC and back.  Logits come back in fp32.
+        NHWC and back, and takes a token sequence or an attention map as it
+        is.  Logits come back in fp32.
         """
         tap_fns = tap_fns or {}
         taken: Dict[str, torch.Tensor] = {}
 
         def hook(name, fn, keep):
             def run(module, inputs, out):
-                f = out.permute(0, 2, 3, 1)
+                nchw = out.ndim == 4 and not getattr(module, "token_layout", False)
+                f = out.permute(0, 2, 3, 1) if nchw else out
                 if fn is not None:
                     f = fn(f).to(out.dtype)
                 if keep:
                     if torch.is_grad_enabled() and not f.requires_grad:
                         f = f.detach().requires_grad_(True)
                     taken[name] = f
-                return f.permute(0, 3, 1, 2)
+                return f.permute(0, 3, 1, 2) if nchw else f
             return run
 
         handles = []
@@ -177,6 +182,7 @@ class Surrogate:
             lowered = cd is not None and x.dtype == torch.float32
             if lowered:
                 x = x.to(cd)
+            backbone_kwargs = {**self.forward_kwargs, **backbone_kwargs}
             if params is None:
                 logits = self.module(x, **backbone_kwargs)
             else:
@@ -215,16 +221,24 @@ class Surrogate:
         return (x_shape[0],) + tuple(shape[1:])
 
     def tap_keys(self) -> List[str]:
-        """JAX's key of every tap of the backbone: the stem conv ``conv1``,
-        each stage ``stage{i}`` and each block ``layer{i}_{j}``."""
-        keys = [tap_key(n) for n, _ in self.module.backbone.named_modules()]
+        """JAX's key of every tap of the backbone: the backbone's own
+        ``tap_keys`` where it has them (a ViT's ``blocks_{i}``, Inception-
+        ResNet-v2's ``repeat_*``), else the stem conv ``conv1``, each stage
+        ``stage{i}`` and each block ``layer{i}_{j}``."""
+        backbone = self.module.backbone
+        if hasattr(backbone, "tap_keys"):
+            return backbone.tap_keys()
+        keys = [tap_key(n) for n, _ in backbone.named_modules()]
         return [k for k in keys if k == "conv1" or re.fullmatch(r"stage\d+|layer\d+_\d+", k)]
 
     def tap_module(self, layer: str) -> nn.Module:
-        """The module whose output is the tap ``layer``, in either naming."""
-        modules = dict(self.module.backbone.named_modules())
+        """The module whose output is the tap ``layer``, in either naming
+        (or as the backbone's ``tap_path`` maps a JAX key)."""
+        backbone = self.module.backbone
+        modules = dict(backbone.named_modules())
         name = layer.replace(" ", ".").strip()
-        for cand in (name, tap_key(name), reference_name(name)):
+        own = backbone.tap_path(name) if hasattr(backbone, "tap_path") else None
+        for cand in (own, name, tap_key(name), reference_name(name)):
             if cand and cand in modules:
                 return modules[cand]
         raise KeyError(f"No feature {layer!r} in {type(self.module.backbone).__name__}")
@@ -308,8 +322,8 @@ _NORMAL_002 = ("pos_embed", "pos_embed1", "pos_embed2", "pos_embed3",
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init at Flax's default scales: lecun-normal (truncated
     at two standard deviations) kernels, zero biases, identity BatchNorm
-    and LayerNorm, and the free parameters of ``_NORMAL_002`` drawn from a
-    normal of std 0.02 (others zero)."""
+    and LayerNorm, the free parameters of ``_NORMAL_002`` drawn from a
+    normal of std 0.02, LayerScale's at its ``init_values`` (others zero)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -326,6 +340,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 for pname, p in m.named_parameters(recurse=False):
                     if pname in _NORMAL_002:
                         nn.init.normal_(p, 0.0, 0.02, generator=generator)
+                    elif pname in ("gamma_1", "gamma_2"):  # CaiT's LayerScale
+                        p.fill_(m.init_values)
                     else:
                         p.zero_()
 
@@ -392,3 +408,5 @@ from . import vit  # noqa: E402,F401
 from . import pit  # noqa: E402,F401
 from . import swin  # noqa: E402,F401
 from . import visformer  # noqa: E402,F401
+from . import cait  # noqa: E402,F401
+from . import inception_resnet  # noqa: E402,F401

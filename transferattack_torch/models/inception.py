@@ -32,8 +32,12 @@ class BasicConv2d(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
-def avgpool3(x):
-    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+def avgpool3(x, count_include_pad: bool = True):
+    """3×3/1 average pool, pad 1, taken in the NCHW-contiguous layout: on a
+    ``channels_last`` CUDA tensor ``avg_pool2d``'s backward with padding is
+    wrong (torch 2.11+cu128 on an H100: the input gradient off by about its
+    own max), while NCHW's is right and both forwards are."""
+    return F.avg_pool2d(x.contiguous(), 3, 1, 1, count_include_pad=count_include_pad)
 
 
 class InceptionA(nn.Module):

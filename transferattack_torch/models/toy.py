@@ -1,6 +1,7 @@
 """Tiny surrogates for fast CPU tests (counterpart of ``models/toy.py``)."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -38,7 +39,60 @@ class ToyCNN(nn.Module):
         return self.fc(x.mean(dim=(2, 3)))
 
 
+class ToySelfAttention(nn.Module):
+    """Flax's ``nn.SelfAttention``: per-head query, key and value projections
+    (the bridge maps their (dim, heads, head_dim) kernels), softmax(q kᵀ/√dh)
+    v, and an output projection over the heads."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, n, d = x.shape
+        q, k, v = (p(x).reshape(b, n, self.heads, -1).transpose(1, 2)
+                   for p in (self.query, self.key, self.value))
+        return self.out(F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, d))
+
+
+class ToyViT(nn.Module):
+    """The JAX package's minimal ViT (an 8×8 patch embedding and ``depth``
+    blocks of Flax ``SelfAttention`` and a tanh-GELU MLP), JAX's names."""
+
+    def __init__(self, num_classes: int = 10, dim: int = 32, depth: int = 2, heads: int = 2,
+                 img_size: int = 32):
+        super().__init__()
+        self.num_classes, self.dim, self.depth, self.heads = num_classes, dim, depth, heads
+        self.patch_embed = nn.Module()
+        self.patch_embed.proj = nn.Conv2d(3, dim, 8, 8)
+        self.cls = nn.Parameter(torch.zeros(1, 1, dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, (-(-img_size // 8)) ** 2 + 1, dim))
+        for i in range(depth):
+            setattr(self, f"norm1_{i}", nn.LayerNorm(dim, eps=1e-6))
+            setattr(self, f"attn_{i}", ToySelfAttention(dim, heads))
+            setattr(self, f"norm2_{i}", nn.LayerNorm(dim, eps=1e-6))
+            setattr(self, f"mlp1_{i}", nn.Linear(dim, dim * 2))
+            setattr(self, f"mlp2_{i}", nn.Linear(dim * 2, dim))
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.head = nn.Linear(dim, num_classes)
+
+    def forward(self, x, features_only: bool = False):
+        x = self.patch_embed.proj(same_pad(x, 8, 8)).flatten(2).transpose(1, 2)
+        x = torch.cat([self.cls.expand(x.shape[0], -1, -1), x], dim=1) + self.pos_embed
+        for i in range(self.depth):
+            x = x + getattr(self, f"attn_{i}")(getattr(self, f"norm1_{i}")(x))
+            h = getattr(self, f"mlp1_{i}")(getattr(self, f"norm2_{i}")(x))
+            x = x + getattr(self, f"mlp2_{i}")(F.gelu(h, approximate="tanh"))
+        feats = self.norm(x)[:, 0]
+        return feats if features_only else self.head(feats)
+
+
 register_model("toy_cnn", input_size=32, mean=(0.5,) * 3, std=(0.5,) * 3)(ToyCNN)
 register_model("toy_cnn2", input_size=32, mean=(0.5,) * 3, std=(0.5,) * 3)(
     lambda **kw: ToyCNN(width=24, **kw)
 )
+register_model("toy_vit", input_size=32, mean=(0.5,) * 3, std=(0.5,) * 3, sized=True)(ToyViT)

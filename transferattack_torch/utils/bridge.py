@@ -12,9 +12,16 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   ``batch_stats/.../mean``/``var`` become ``running_mean``/``running_var``;
   other leaves (``cls_token``, ``relative_position_bias_table``, ...) keep
   their names;
+* a 3-D ``kernel`` of Flax's ``SelfAttention`` (``toy_vit``) becomes a
+  Linear ``weight``: query/key/value (dim, heads, head_dim) → (heads·head_dim,
+  dim), ``out`` (heads, head_dim, dim) → (dim, heads·head_dim); their 2-D
+  ``bias`` (heads, head_dim) is flattened;
 * module paths: ``layerN_j`` → ``layerN.j``, ``features_N`` →
-  ``features.N`` (likewise ``classifier``, ``blocks``, ``stageN``, and
-  ``net`` of ANA's alignment net),
+  ``features.N`` (likewise ``classifier``, ``blocks``, CaiT's
+  ``blocks_token_only``, ``stageN``, ``net`` of ANA's alignment net, and
+  Inception-ResNet-v2's ``repeat``/``repeat_1``/``repeat_2`` and
+  ``branchK``: ``repeat_1_0`` → ``repeat_1.0``, ``branch1_2`` →
+  ``branch1.2``),
   ``downsample_conv``/``downsample_bn`` → ``downsample.0``/``.1``,
   ``patch_embed`` → ``patch_embed.proj``, ``patch_norm`` →
   ``patch_embed.norm``, ``layers_i_blocks_j`` → ``layers.i.blocks.j`` (and
@@ -38,7 +45,8 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|stage\d+|conv|net)_(\d+)")
+_INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
+                      r"|repeat|repeat_[12]|branch\d)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -84,12 +92,18 @@ def torch_key(jax_key: str) -> str:
 
 def torch_layout(jax_key: str, value: np.ndarray) -> np.ndarray:
     """Transpose a JAX kernel into PyTorch's weight layout."""
-    leaf = jax_key.rsplit("/", 1)[-1]
+    *path, leaf = jax_key.split("/")
     if leaf == "kernel":
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         if value.ndim == 2:
             return value.T  # (I, O) -> (O, I)
+        if value.ndim == 3 and path[-1] == "out":  # (heads, head_dim, dim)
+            return value.reshape(-1, value.shape[-1]).T
+        if value.ndim == 3:  # (dim, heads, head_dim)
+            return value.reshape(value.shape[0], -1).T
+    if leaf == "bias" and value.ndim == 2:  # (heads, head_dim)
+        return value.reshape(-1)
     if leaf.startswith("pos_embed") and value.ndim == 4:
         return value.transpose(0, 3, 1, 2)  # (1, H, W, C) -> (1, C, H, W)
     return value
