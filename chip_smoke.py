@@ -106,7 +106,24 @@ random weights.  Phases:
     ViT, a patch attack, [0, 1] only), a finite delta, its objective risen
     (CE; ATA-ViT's log(1 − p_y)), exactly the update-kernel launches its
     code implies (none for ATA-ViT's Adam), and its gradient evaluations,
-    images per second, ms an evaluation and peak memory.
+    images per second, ms an evaluation and peak memory;
+16. IDAA, Everywhere and ODI with their field warps and the mesh rasterizer:
+    (a) on the card against the CPU, fp32 with TF32 off: each of IDAA's ten
+    ops (its field within ``1e-5·max``, its warp forward and input gradient
+    within the same), the rasterizer on each of ODI's three meshes at 64²
+    (hit masks equal on at least 99.9% of pixels, colours within 1e-5
+    where the face ids agree), ``grid_sample``'s and the texture gather's
+    backwards against fp64 on the CPU in both memory formats, and each key
+    on ResNet-18 at 64², batch 2, 2 iterations, one seeded CPU generator
+    handed to both calls: deltas agree in sign on at least 99% of elements;
+    (b) each at full width, ResNet-50 bf16, 224², batch 32, official
+    hyperparameters (Everywhere and ODI capped, printed as ``reduced``; ODI
+    once on each mesh, the object pinned through its draw seam), targeted
+    at the prediction shifted by 500: bounds, a finite delta, the objective
+    moved its way, exactly the update-kernel launches its code implies
+    (IDAA 0, Everywhere epoch − 1, ODI epoch), and its gradient
+    evaluations, images per second, peak memory and, for ODI, render ms an
+    image.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -138,6 +155,7 @@ from transferattack_torch import main as cli
 from transferattack_torch.attack import Attack, softmax_cross_entropy
 from transferattack_torch.config import official_defaults
 from transferattack_torch.gradient.mef import MEF
+from transferattack_torch.input_transformation import idaa as tidaa
 from transferattack_torch.gradient.mifgsm import MIFGSM
 from transferattack_torch.models import (
     IMAGENET_MEAN,
@@ -152,6 +170,8 @@ from transferattack_torch.models.resnet import Bottleneck, fold_bn
 from transferattack_torch.models.vit import VisionTransformer, ViTSurgery
 from transferattack_torch.ops import _build
 from transferattack_torch.ops import fused_bwd as fb
+from transferattack_torch.ops import image as timage
+from transferattack_torch.ops import render3d
 from transferattack_torch.ops.fused_update import (
     fused_sign_update,
     fused_sign_update_plain,
@@ -266,6 +286,15 @@ VIT_NARROW = {"patch_size": 16, "dim": 64, "depth": 12, "num_heads": 2}
 CAIT_NARROW = {"patch_size": 16, "dim": 64, "depth": 2, "depth_token_only": 2, "num_heads": 2}
 VIT_SMALL = {"pna_patchout": {"sample_num_patches": 2}, "att": {"sample_num_patches": 2},
              "ll2s": {"num_scale": 2, "ops_num": 1, "num_robust_tokens": 3}}
+# phase 16: IDAA, Everywhere and ODI
+IDAA_KEYS = ("idaa", "everywhere", "odi")
+# 16a: ResNet-18 at 64², 2 iterations (Everywhere: 2 steps after its recording)
+IDAA_SMALL = {"idaa": {"num_scale": 4, "epoch": 2}, "everywhere": {"epoch": 3},
+              "odi": {"epoch": 2}}
+# 16b: the official hyperparameters, but Everywhere's 299 steps of 160 images
+# and ODI's 300 renders of 32 images a mesh (about 0.5–1 s a step) capped
+IDAA_CAPS = {"everywhere": {"epoch": 20}, "odi": {"epoch": 10}}
+FIELD_TOL = 1e-5  # of max|ref|: fields, warps and their gradients, card vs CPU
 
 
 def check(ok: bool, what: str) -> None:
@@ -1053,6 +1082,255 @@ def run_vit_family(dev, smi) -> dict:
     return launches
 
 
+def rel_err(out, ref) -> float:
+    """max|out - ref| / max|ref|, in fp64, on the CPU."""
+    return errors(out.detach().cpu(), ref.detach().cpu())[1]
+
+
+def op_card_vs_cpu(op: str) -> tuple:
+    """IDAA's op ``op`` on 4 images at 64², one CPU generator's draws on
+    both: (field error, warp error, input-gradient error), card vs CPU."""
+    gen = torch.Generator().manual_seed(71 + tidaa.IDAA_OPS.index(op))
+    x = torch.rand(4, 64, 64, 3, generator=gen)
+    ct = torch.randn(4, 64, 64, 3, generator=gen)
+    d = tidaa.op_draws(gen, op, 4, 64, 64)
+    fields = {"perspective": lambda dd: tidaa.perspective_field(dd["d"], 64, 64),
+              "tps": lambda dd: timage.tps_field(dd["offsets"], 64, 64),
+              "elastic": lambda dd: (timage.gaussian_blur_sep(dd["noise"], 27, 33.0, 31.0),),
+              "fisheye": lambda dd: timage.fisheye_field(dd["cx"], dd["cy"], dd["g"], 64, 64)}
+    out, grads, field = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        dd = {k: v.to(where) for k, v in d.items()}
+        xs = x.to(where).requires_grad_(True)
+        out[where] = tidaa.apply_op(op, xs, **dd)
+        (grads[where],) = torch.autograd.grad((out[where] * ct.to(where)).sum(), xs)
+        if op in fields:
+            field[where] = fields[op](dd)
+    f_err = max((rel_err(a, b) for a, b in zip(field.get("cuda", ()), field.get("cpu", ()))),
+                default=0.0)
+    return f_err, rel_err(out["cuda"], out["cpu"]), rel_err(grads["cuda"], grads["cpu"])
+
+
+def backward_vs_fp64() -> dict:
+    """``grid_sample``'s and the texture gather's input gradients on the card
+    (fp32) against the CPU's in fp64, with the input in NCHW and in
+    channels_last (the gather: a contiguous NHWC texture and a permuted NCHW
+    one): max|d| / max|ref| each."""
+    gen = torch.Generator().manual_seed(81)
+    x = torch.rand(4, 3, 64, 64, generator=gen, dtype=torch.float64)
+    grid = torch.rand(4, 64, 64, 2, generator=gen, dtype=torch.float64) * 2.4 - 1.2
+    ct = torch.randn(4, 3, 64, 64, generator=gen, dtype=torch.float64)
+
+    def sample_grad(inp, g, c):
+        inp = inp.detach().requires_grad_(True)
+        out = F.grid_sample(inp, g, mode="bilinear", padding_mode="zeros", align_corners=False)
+        return torch.autograd.grad((out * c).sum(), inp)[0]
+
+    ref = sample_grad(x, grid, ct)
+    res = {}
+    for fmt, layout in (("NCHW", torch.contiguous_format), ("channels_last", torch.channels_last)):
+        xc = x.float().cuda().contiguous(memory_format=layout)
+        res[f"grid_sample {fmt}"] = rel_err(sample_grad(xc, grid.float().cuda(),
+                                                        ct.float().cuda()), ref)
+    tex = torch.rand(2, 96, 80, 3, generator=gen, dtype=torch.float64)
+    v = torch.randint(0, 96, (2, 4096), generator=gen)
+    u = torch.randint(0, 80, (2, 4096), generator=gen)
+    w = torch.rand(2, 4096, 1, generator=gen, dtype=torch.float64)
+    ctg = torch.randn(2, 4096, 3, generator=gen, dtype=torch.float64)
+    b = torch.arange(2)[:, None]
+
+    def gather_grad(t, bb, vv, uu, ww, cc):
+        t = t.detach().requires_grad_(True)
+        return torch.autograd.grad((t[bb, vv, uu] * ww * cc).sum(), t)[0]
+
+    ref = gather_grad(tex, b, v, u, w, ctg)
+    for fmt in ("NHWC", "channels_last"):
+        t = tex.float().cuda()
+        if fmt == "channels_last":  # an NHWC view of a channels_last NCHW tensor
+            t = t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last) \
+                .permute(0, 2, 3, 1)
+        res[f"texture gather {fmt}"] = rel_err(gather_grad(
+            t, b.cuda(), v.cuda(), u.cuda(), w.float().cuda(), ctg.float().cuda()), ref)
+    return res
+
+
+def raster_card_vs_cpu(mesh: str, seed: int) -> tuple:
+    """ODI's render geometry and shading of 4 draws at 64² on ``mesh``, card
+    against CPU: (share of equal hit masks, share of equal face ids where
+    both hit, max colour difference where the face ids agree, share of
+    pixels covered).  The image is smooth (bilinear from 8², so that a
+    last-bit difference in a pixel's UV, times the canvas side, moves its
+    colour by far less than the bar)."""
+    gen = torch.Generator().manual_seed(seed)
+    img = F.interpolate(torch.rand(4, 3, 8, 8, generator=gen), size=(64, 64), mode="bilinear",
+                        align_corners=True).permute(0, 2, 3, 1).contiguous()
+    draws = {"solid": torch.rand(4, 3, generator=gen),
+             "elev": torch.randint(-35, 36, (4,), generator=gen),
+             "azim": torch.randint(-35, 36, (4,), generator=gen),
+             "dist": torch.rand(4, generator=gen),
+             "angle": torch.randint(-35, 36, (4,), generator=gen),
+             "light": torch.rand(4, 3, generator=gen), "ambient": torch.rand(4, generator=gen),
+             "diffuse": torch.rand(4, generator=gen),
+             "background": torch.rand(4, 64, 64, 3, generator=gen)}
+    settings, tex_size = render3d.ODI_MODEL_SETTINGS[mesh], render3d.ODI_TEXTURE_SIZES[mesh]
+    geo, col = {}, {}
+    R, T = render3d.odi_camera(settings, draws)
+    for where in ("cuda", "cpu"):
+        m = render3d.load_mesh(mesh, device=where)
+        geo[where] = [t.cpu() for t in render3d.rasterize(m, R, T, 64, 64)]
+        col[where] = render3d.render_odi(img.to(where), m, settings, tex_size,
+                                         draws, 64, 64).cpu()
+    (hc, fc, _), (hp, fp, _) = geo["cuda"], geo["cpu"]
+    both = hc & hp
+    same = (fc == fp) & both
+    agree_hit = float((hc == hp).float().mean())
+    agree_fid = float(same.float().sum() / both.float().sum().clamp(min=1))
+    diff = (col["cuda"] - col["cpu"]).abs().amax(-1).reshape(4, -1)
+    col_err = float(diff[same].max()) if bool(same.any()) else 0.0
+    return agree_hit, agree_fid, col_err, float(hp.float().mean())
+
+
+def idaa_objective(key: str, atk, x, y2, adv) -> tuple:
+    """(what, before, after, want) of the objective ``key`` optimizes, read
+    on the plain surrogate at x and at x + delta (ODI: on its first
+    iteration's render of both, the draws replayed from the call's seed):
+    IDAA's CE(target) − γ·CE(source) falls; Everywhere's and ODI's summed
+    target logit rises."""
+    src, tgt = y2[:, 0], y2[:, 1]
+    with torch.no_grad():
+        if key == "idaa":
+            def obj(a):
+                lf = atk.model.apply(a).float()
+                return float(softmax_cross_entropy(lf, tgt).mean()
+                             - atk.gamma * softmax_cross_entropy(lf, src).mean())
+            return "CE(target) - 0.1 CE(source)", obj(x), obj(adv), "fell"
+        if key == "everywhere":
+            def obj(a):
+                return float(atk.model.apply(a).float().gather(1, tgt[:, None]).sum())
+            return "summed target logit", obj(x), obj(adv), "rose"
+        draws = atk.render_draws(torch.Generator(device=x.device).manual_seed(atk.seed),
+                                 x.shape[0], 0, x.shape[1], x.shape[2])
+
+        def obj(a):
+            lf = atk.model.apply(atk.render(a, draws)).float()
+            return float(lf.gather(1, tgt[:, None]).sum())
+        return "summed target logit of its first render", obj(x), obj(adv), "rose"
+
+
+def run_idaa_family(dev, smi) -> dict:
+    """Phase 16; returns each call's update-kernel launches in 16b."""
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for op in tidaa.IDAA_OPS:
+        f_err, w_err, g_err = op_card_vs_cpu(op)
+        check(max(f_err, w_err, g_err) <= FIELD_TOL,
+              f"idaa op {op}: card vs CPU field {f_err}, warp {w_err}, gradient {g_err}")
+        print(f"[16a idaa] op {op}, 4 images at 64², fp32, card vs CPU max|d|/max|ref|: "
+              f"field {f_err:.3e}, warp {w_err:.3e}, input gradient {g_err:.3e}")
+    for name, err in backward_vs_fp64().items():
+        check(err <= FIELD_TOL, f"{name} backward on the card vs CPU fp64: {err}")
+        print(f"[16a idaa] {name} backward, card fp32 vs CPU fp64: max|d|/max|ref| {err:.3e}")
+    for i, mesh in enumerate(tt.load_attack_class("odi").SOURCE_OBJECTS):
+        hit, fid, col, cover = raster_card_vs_cpu(mesh, 91 + i)
+        check(hit >= 0.999 and fid >= 0.999 and col <= 1e-5,
+              f"rasterizer on {mesh}: hit masks {hit}, face ids {fid}, colours {col}")
+        print(f"[16a idaa] rasterizer on {mesh}, 4 renders at 64², card vs CPU: hit masks equal "
+              f"on {hit:.6f} of pixels ({cover:.3f} covered), face ids on {fid:.6f} where both "
+              f"hit, colours within {col:.3e} where they agree")
+    rng = np.random.RandomState(72)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    ys2 = np.stack([ys, (ys + 500) % 1000], 1)
+    models = {w: make_model("resnet18", pretrained=False, input_size=64, device=w)
+              for w in ("cuda", "cpu")}
+    for key in IDAA_KEYS:
+        d = {w: tt.load_attack_class(key)(model_name=m, device=w, **IDAA_SMALL[key])(
+            xs, ys2, generator=torch.Generator().manual_seed(73)).cpu().numpy()
+            for w, m in models.items()}
+        agree = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+        check(agree >= 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        check(0 < np.abs(d["cuda"]).max() <= EPS + 1e-6, f"{key}: |delta|inf on the card")
+        print(f"[16a idaa] {key}: ResNet-18 64², batch 2, {IDAA_SMALL[key]}, fp32: delta sign "
+              f"agreement card vs CPU {agree:.6f}")
+    del models
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (b) full width
+    surrogate = make_model("resnet50", device="cuda")
+    surrogate.module.to(torch.bfloat16)
+    surrogate.compute_dtype = torch.bfloat16
+    x = torch.from_numpy(np.random.RandomState(74).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = surrogate.apply(x).argmax(-1)
+    y2 = torch.stack([y, (y + 500) % 1000], 1)
+    launches = {}
+    runs = [("idaa", None), ("everywhere", None)] + [
+        ("odi", i) for i in range(len(tt.load_attack_class("odi").SOURCE_OBJECTS))]
+    for key, obj in runs:
+        caps = IDAA_CAPS.get(key)
+        atk = tt.load_attack_class(key)(model_name=surrogate, compute_dtype="bfloat16",
+                                        device="cuda", **(caps or {}))
+        tag = key
+        if obj is not None:  # one object for the whole call, through the draw seam
+            tag = f"odi_{atk.SOURCE_OBJECTS[obj]}"
+            draws = atk.render_draws
+
+            def render_draws(gen, B, step, H, W, draws=draws, obj=obj):
+                return {**draws(gen, B, step, H, W), "obj": obj}
+            atk.render_draws = render_draws
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, y2)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[tag] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = 0 if key == "idaa" else atk.epoch
+        check(n == want, f"{tag}: {n} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{tag}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= EPS + 1e-6, f"{tag}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{tag}: x + delta leaves [0, 1]")
+        what, before, after, way = idaa_objective(key, atk, x, y2, adv)
+        check(after < before if way == "fell" else after > before,
+              f"{tag}: {what} did not move its way: {before} -> {after}")
+        extra = {}
+        if obj is not None:  # render ms an image: one batch's render, timed alone
+            d0 = atk.render_draws(torch.Generator(device=dev).manual_seed(5), GRADIENT_BATCH, 0,
+                                  224, 224)
+            with torch.no_grad():
+                atk.render(x, d0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                atk.render(x, d0)
+                torch.cuda.synchronize()
+            extra = {"render_ms_per_image": 1e3 * (time.perf_counter() - t1) / GRADIENT_BATCH,
+                     "faces": int(atk._meshes[obj].tri_pos.shape[0])}
+        reduced = ("; reduced: " + ", ".join(
+            f"{k} {official_defaults(key)[k]} -> {v}" for k, v in caps.items()) if caps else "")
+        render = (f", render {extra['render_ms_per_image']:.2f} ms an image "
+                  f"({extra['faces']} faces, padded)" if extra else "")
+        print(f"[16b idaa] {tag}: ResNet-50 bf16, batch {GRADIENT_BATCH}, 224², targeted: "
+              f"{atk.grad_evals} gradient evaluations (batches of {GRADIENT_BATCH}), {n} "
+              f"update-kernel launches, {secs:.3f} s, {GRADIENT_BATCH / secs:.2f} img/s, peak "
+              f"memory {peak:.2f} GiB{render}, |delta|inf*255 = {linf * 255:.4f}, {what} "
+              f"{before:.6g} -> {after:.6g} ({way}) on {smi}{reduced}")
+        print(json.dumps({"input_key": tag, "grad_evals": atk.grad_evals, "launches": n,
+                          "seconds": secs, "img_per_s": GRADIENT_BATCH / secs,
+                          "peak_gib": peak, "objective": what, "value": [before, after],
+                          "targeted": True, "reduced": caps or {}, **extra}))
+        del atk, delta, adv
+        torch.cuda.empty_cache()
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -1439,6 +1717,10 @@ def main() -> None:
 
     # 15. the ViT surgery and the ViT keys of model_related
     vit_launches_ = run_vit_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 16. IDAA, Everywhere and ODI
+    input_launches.update(run_idaa_family(dev, smi))
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
