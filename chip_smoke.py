@@ -123,7 +123,24 @@ random weights.  Phases:
     moved its way, exactly the update-kernel launches its code implies
     (IDAA 0, Everywhere epoch − 1, ODI epoch), and its gradient
     evaluations, images per second, peak memory and, for ODI, render ms an
-    image.
+    image;
+17. the ensemble surrogate, DenseNet-121/201 and the five ensemble keys:
+    (a) on the card against the CPU, fp32 with TF32 off: DenseNet-121's
+    logits and input gradient at 64² (``channels_last`` and NCHW) no further
+    from a CPU fp64 copy than the CPU's fp32 plus ``1e-3·max|ref|``, and each
+    key on a two-member ensemble (ResNet-18 and ``toy_cnn2``, ten classes)
+    at 64², batch 2, 2 iterations, one seeded CPU generator handed to both
+    calls: deltas agree in sign on at least 99% of elements; (b) at full
+    width, bf16, batch 32, official hyperparameters, labels the ensemble's
+    own predictions: ENS on the paper's four CNNs (299², its largest
+    member's), SVRE, CWA, AdaEA and SMER on their four ResNets at 224²,
+    MI-FGSM on DenseNet-121 and -201, ENS on RFCoA's ResNet-50, VGG-16 and
+    DenseNet-121: bounds, a finite delta, the ensemble's CE risen, exactly
+    the update-kernel launches and member passes (backward, and forward
+    only) its code implies, and seconds, images per second and peak memory;
+    (c) the CLI, ``--attack ens --model resnet50,vgg16 --bf16`` with and
+    without ``--ensemble``, over 8 of phase 9's PNGs: 8 PNGs within 16
+    levels of their inputs, 1 batch and 10 launches each.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -163,6 +180,7 @@ from transferattack_torch.models import (
     Surrogate,
     WrappedModel,
     init_weights,
+    make_ensemble,
     make_model,
 )
 from transferattack_torch.models.cait import Cait
@@ -295,6 +313,17 @@ IDAA_SMALL = {"idaa": {"num_scale": 4, "epoch": 2}, "everywhere": {"epoch": 3},
 # and ODI's 300 renders of 32 images a mesh (about 0.5–1 s a step) capped
 IDAA_CAPS = {"everywhere": {"epoch": 20}, "odi": {"epoch": 10}}
 FIELD_TOL = 1e-5  # of max|ref|: fields, warps and their gradients, card vs CPU
+# phase 17: the ensemble surrogate, DenseNet and the ensemble keys
+ENSEMBLE_KEYS = ("ens", "svre", "cwa", "adaea", "smer")
+# 17a: two distinct members (seeded alike, two ResNet-18s would be one
+# model twice), ten classes, at 64²
+ENSEMBLE_PAIR = {"model_name": ["resnet18", "toy_cnn2"], "num_classes": 10, "input_size": 64,
+                 "pretrained": False}
+# 17b: the four ResNets SVRE, CWA, AdaEA and SMER take for a model name, and
+# RFCoA's default set, which puts a DenseNet inside an ensemble
+RESNETS = ["resnet18", "resnet34", "resnet50", "resnet101"]
+RFCOA_SET = ["resnet50", "vgg16", "densenet121"]
+CLI_ENSEMBLE_IMAGES = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -1331,24 +1360,207 @@ def run_idaa_family(dev, smi) -> dict:
     return launches
 
 
-def run_cli(work: str):
-    """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
-    attack, then the eval.  Returns the update-kernel launches of the
-    attack's first run."""
-    data, adv = os.path.join(work, "data"), os.path.join(work, "adv")
+def ensemble_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call: SVRE's and SMER's inner steps
+    each step ``update_delta``, then the outer step; the others only the
+    outer one (CWA's inner sweep clips by itself)."""
+    inner = {"svre": "M", "smer": "m_smer"}.get(key)
+    return atk.epoch * (getattr(atk, inner) + 1 if inner else 1)
+
+
+def ensemble_passes(key: str, atk) -> tuple:
+    """(member backward passes, forward-only member passes) of one call, as
+    the code implies them: an ensemble pass is one a member."""
+    K = len(atk.model.members) or 1
+    if key == "svre":  # the ensemble pass, then two member passes an inner step
+        per_step = (K + 2 * atk.M, 0)
+    elif key == "smer":  # a member pass and K weight forwards an inner step
+        per_step = (atk.m_smer, atk.m_smer * K)
+    else:
+        per_step = {"ens": (K, 0), "mifgsm": (1, 0), "cwa": (2 * K, 0),
+                    "adaea": (2 * K, K * K)}[key]
+    return tuple(atk.epoch * n for n in per_step)
+
+
+def densenet_vs_fp64() -> dict:
+    """DenseNet-121 at 64², 2 images: the card's fp32 logits and input
+    gradients (``channels_last``, the port's layout, and NCHW) and the CPU's,
+    each against a CPU fp64 copy: {what: (card, CPU) max|d|/max|ref|}."""
+    cpu = make_model("densenet121", pretrained=False, input_size=64, device="cpu")
+    exact = copy.deepcopy(cpu.module).double()
+    gen = torch.Generator().manual_seed(77)
+    x = torch.rand(2, 64, 64, 3, generator=gen)
+    y = torch.randint(0, 1000, (2,), generator=gen)
+
+    def grad(module, xx, yy, nchw=False):
+        xx = xx.clone().requires_grad_(True)
+        inp = module.preprocess(xx).permute(0, 3, 1, 2)
+        logits = module.backbone(inp.contiguous() if nchw else inp)
+        return logits, torch.autograd.grad(F.cross_entropy(logits, yy), xx)[0]
+
+    ref_logits, ref = grad(exact, x.double(), y)
+    cpu_logits, on_cpu = grad(cpu.module, x, y)
+    res = {}
+    for layout in ("channels_last", "NCHW"):
+        card = copy.deepcopy(cpu.module).cuda()
+        if layout == "NCHW":
+            card = card.to(memory_format=torch.contiguous_format)
+        logits, on_card = grad(card, x.cuda(), y.cuda(), nchw=layout == "NCHW")
+        if layout == "channels_last":
+            res["logits"] = (rel_err(logits, ref_logits), rel_err(cpu_logits, ref_logits))
+        res[f"input gradient {layout}"] = (rel_err(on_card, ref), rel_err(on_cpu, ref))
+    return res
+
+
+def write_cli_data(data: str, n: int):
+    """The first ``n`` of phase 9's seeded 299² PNGs under ``data/images``,
+    labelled (1-indexed, ``data/labels.csv``) by the ResNet-50 surrogate's
+    own predictions on the images as the attack sees them, resized to 224².
+    Returns their names and the clean images."""
     rng = np.random.RandomState(9)
-    names = [f"img_{i:04d}.png" for i in range(CLI_IMAGES)]
-    save_images(os.path.join(data, "images"),
-                rng.rand(CLI_IMAGES, 299, 299, 3).astype(np.float32), names)
-    # the labels: the surrogate's own predictions (1-indexed) on the images
-    # as the attack sees them, resized to 224²
-    clean = np.stack([load_image(os.path.join(data, "images", n)) for n in names])
+    names = [f"img_{i:04d}.png" for i in range(n)]
+    save_images(os.path.join(data, "images"), rng.rand(n, 299, 299, 3).astype(np.float32),
+                names)
+    clean = np.stack([load_image(os.path.join(data, "images", m)) for m in names])
     surrogate = make_model("resnet50", device="cuda")
     with torch.inference_mode():
         pred = surrogate.apply(torch.from_numpy(clean).cuda()).argmax(-1).cpu().numpy()
     del surrogate
     with open(os.path.join(data, "labels.csv"), "w") as f:
-        f.write("filename,label\n" + "".join(f"{n},{p + 1}\n" for n, p in zip(names, pred)))
+        f.write("filename,label\n" + "".join(f"{m},{p + 1}\n" for m, p in zip(names, pred)))
+    return names, clean
+
+
+def check_cli_outputs(out_dir: str, names, clean) -> float:
+    """The CLI wrote one 224² PNG for each input, each within 16 levels of
+    its clean image; returns the largest distance in levels."""
+    written = sorted(m for m in os.listdir(out_dir) if m.endswith(".png"))
+    check(written == names, f"the CLI wrote {len(written)} PNGs, expected {len(names)}")
+    worst = 0.0
+    for i, m in enumerate(names):
+        img = load_image(os.path.join(out_dir, m))
+        check(img.shape == (224, 224, 3), f"{m}: shape {img.shape}")
+        worst = max(worst, float(np.abs(np.round(img * 255) - np.round(clean[i] * 255)).max()))
+    check(worst <= 16, f"an adversarial PNG is {worst} levels from its clean image")
+    return worst
+
+
+def run_ensemble_family(dev, smi) -> dict:
+    """Phase 17; returns each call's update-kernel launches in 17b and 17c."""
+    check(all(k in tt.attack_zoo for k in ENSEMBLE_KEYS), "an ensemble key is not registered")
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for what, (card64, cpu64) in densenet_vs_fp64().items():
+        check(card64 <= cpu64 + EVAL_TOL, f"densenet121 {what}: card fp32 vs fp64 "
+              f"max|d|/max|ref| = {card64}, CPU fp32 vs fp64 {cpu64}")
+        print(f"[17a ensemble] densenet121 at 64², 2 images, {what} max|d|/max|ref|: card fp32 "
+              f"vs fp64 {card64:.3e}, CPU fp32 vs fp64 {cpu64:.3e} (the card's bound: that + "
+              f"{EVAL_TOL:g})")
+    rng = np.random.RandomState(75)
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 10, size=2)
+    for key in ENSEMBLE_KEYS:
+        d = {w: tt.load_attack_class(key)(epoch=2, device=w, **ENSEMBLE_PAIR)(
+            xs, ys, generator=torch.Generator().manual_seed(76)).cpu().numpy()
+            for w in ("cuda", "cpu")}
+        agree = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+        check(agree >= 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+        check(0 < np.abs(d["cuda"]).max() <= EPS + 1e-6, f"{key}: |delta|inf on the card")
+        print(f"[17a ensemble] {key}: ResNet-18 + toy_cnn2 at 64², ten classes, batch 2, 2 "
+              f"iterations, fp32: delta sign agreement card vs CPU {agree:.6f}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (b) full width, bf16, batch 32, official hyperparameters
+    resnets = make_ensemble(RESNETS, device="cuda")  # built once for the four keys
+    runs = [("ens", "cnn_model_paper", cnn_model_paper)] + [
+        (k, "+".join(RESNETS), resnets) for k in ("svre", "cwa", "adaea", "smer")] + [
+        ("mifgsm", "densenet121", "densenet121"), ("mifgsm", "densenet201", "densenet201"),
+        ("ens", "+".join(RFCOA_SET), RFCOA_SET)]
+    launches = {}
+    for i, (key, label, model) in enumerate(runs):
+        atk = tt.load_attack_class(key)(model_name=model, compute_dtype="bfloat16",
+                                        device="cuda")
+        tag = key if model is resnets else f"{key}_{label}"
+        size = atk.model.input_size
+        x = torch.from_numpy(np.random.RandomState(78 + i).rand(GRADIENT_BATCH, size, size, 3)
+                             .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            logits0 = atk.model.apply(x)
+        y = logits0.argmax(-1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        delta = atk(x, y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[tag] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = ensemble_launches(key, atk)
+        check(n == want, f"{tag}: {n} update-kernel launches, its code implies {want}")
+        passes = (atk.grad_evals, atk.forward_evals)
+        check(passes == ensemble_passes(key, atk), f"{tag}: (backward, forward-only) member "
+              f"passes {passes}, its code implies {ensemble_passes(key, atk)}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{tag}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        check(0.0 < linf <= EPS + 1e-6, f"{tag}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{tag}: x + delta leaves [0, 1]")
+        with torch.no_grad():
+            logits1 = atk.model.apply(adv)
+        ce0 = float(softmax_cross_entropy(logits0, y).mean())
+        ce1 = float(softmax_cross_entropy(logits1, y).mean())
+        check(ce1 > ce0, f"{tag}: the ensemble's CE did not rise: {ce0} -> {ce1}")
+        members = len(atk.model.members) or 1
+        print(f"[17b ensemble] {tag}: {label} ({members} member(s)) bf16, batch "
+              f"{GRADIENT_BATCH}, {size}²: {passes[0]} member backward passes and {passes[1]} "
+              f"forward-only (batches of {GRADIENT_BATCH}), {n} update-kernel launches, "
+              f"{secs:.3f} s, {GRADIENT_BATCH / secs:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {linf * 255:.4f}, ensemble CE {ce0:.6g} -> {ce1:.6g} on {smi}")
+        print(json.dumps({"ensemble_key": tag, "model": label, "members": members,
+                          "size": size, "grad_evals": passes[0], "forward_evals": passes[1],
+                          "launches": n, "seconds": secs, "img_per_s": GRADIENT_BATCH / secs,
+                          "peak_gib": peak, "ce": [ce0, ce1]}))
+        del atk, delta, adv, logits0, logits1, x
+        torch.cuda.empty_cache()
+    del resnets
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on an ensemble, with and without --ensemble
+    with tempfile.TemporaryDirectory() as work:
+        data = os.path.join(work, "data")
+        names, clean = write_cli_data(data, CLI_ENSEMBLE_IMAGES)
+        for tag, flags in (("cli_ensemble", ["--ensemble"]), ("cli_comma_list", [])):
+            out_dir = os.path.join(work, tag)
+            fused_sign_update.launches = 0
+            cli.main(["--attack", "ens", "--model", "resnet50,vgg16", *flags, "--bf16",
+                      "--batchsize", str(CLI_BATCH), "--input_dir", data,
+                      "--output_dir", out_dir])
+            torch.cuda.synchronize()
+            n = launches[tag] = fused_sign_update.launches
+            check(n == 10, f"{tag}: {n} update-kernel launches, expected 10 (1 batch of 10 "
+                  f"iterations)")
+            worst = check_cli_outputs(out_dir, names, clean)
+            with open(os.path.join(out_dir, "attack_meta.json")) as f:
+                meta = json.load(f)
+            check(meta["model"] == "resnet50,vgg16" and meta["n_images"] == len(names),
+                  f"{tag}: attack_meta.json {meta}")
+            argv = " ".join(["--attack ens --model resnet50,vgg16", *flags, "--bf16"])
+            print(f"[17c ensemble] `{argv}` over {len(names)} PNGs: 1 batch, {n} update-kernel "
+                  f"launches, "
+                  f"at most {worst:.0f} levels from their clean images (eps 16/255)")
+    return launches
+
+
+def run_cli(work: str):
+    """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
+    attack, then the eval.  Returns the update-kernel launches of the
+    attack's first run."""
+    data, adv = os.path.join(work, "data"), os.path.join(work, "adv")
+    names, clean = write_cli_data(data, CLI_IMAGES)
 
     # the attack cold, then once more warm: the second run's rate is free
     # of the first calls at batch 32 (cuDNN's choice of plans, the
@@ -1362,15 +1574,7 @@ def run_cli(work: str):
         launches = fused_sign_update.launches
         check(launches == 2 * 10, f"the CLI launched the update kernel {launches} "
               f"times in its {run} run, expected 20 (2 batches of 10 iterations)")
-        written = sorted(n for n in os.listdir(out_dir) if n.endswith(".png"))
-        check(written == names, f"the CLI wrote {len(written)} PNGs, expected {CLI_IMAGES}")
-        worst = 0.0
-        for i, n in enumerate(names):
-            img = load_image(os.path.join(out_dir, n))
-            check(img.shape == (224, 224, 3), f"{n}: shape {img.shape}")
-            worst = max(worst, float(np.abs(np.round(img * 255)
-                                            - np.round(clean[i] * 255)).max()))
-        check(worst <= 16, f"an adversarial PNG is {worst} levels from its clean image")
+        worst = check_cli_outputs(out_dir, names, clean)
         print(f"[9 cli] {run}: {CLI_IMAGES} PNGs at 224², at most {worst:.0f} levels "
               f"from their clean images (eps 16/255); {launches} update-kernel launches")
 
@@ -1721,6 +1925,10 @@ def main() -> None:
 
     # 16. IDAA, Everywhere and ODI
     input_launches.update(run_idaa_family(dev, smi))
+    torch.cuda.empty_cache()
+
+    # 17. the ensemble surrogate, DenseNet and the ensemble keys
+    ensemble_launches_ = run_ensemble_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -1737,6 +1945,7 @@ def main() -> None:
          "launches_objective": objective_launches_,
          "launches_model_related": model_related_launches_,
          "launches_vit": vit_launches_,
+         "launches_ensemble": ensemble_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

@@ -11,7 +11,8 @@
   other way), and identical ``results_eval.txt`` rows over
   ``toy_cnn,resnet18``, with and without ``--bf16`` (the eval model's
   variables rounded to bf16); and the same attack bar for MIG, a
-  gradient-family key that drops ``--alpha``.
+  gradient-family key that drops ``--alpha``; ENS on ``toy_cnn,toy_cnn2``
+  with and without ``--ensemble``, its outputs within eps of the inputs.
 * ``bench.py``: its JSON line on ``toy_cnn``.
 """
 import json
@@ -331,8 +332,6 @@ def test_eval_bf16_model_matches_jax(cli_runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--ensemble"], NotImplementedError),
-    (["--model", "toy_cnn,toy_cnn2"], NotImplementedError),
     (["--model_axis", "2"], NotImplementedError),
     (["--checkpoint_every", "5"], NotImplementedError),
     (["--attack", "ttp"], ValueError),  # a generation key: not in the registry yet
@@ -343,6 +342,33 @@ def test_cli_refuses_what_is_not_ported(tmp_path, flags, error):
     with pytest.raises(error):
         tmain.main(["--model", "toy_cnn", "--device", "cpu", "--input_dir",
                     str(tmp_path), "--output_dir", str(tmp_path / "out"), *flags])
+
+
+@pytest.mark.parametrize("flags", [["--ensemble"], []], ids=["ensemble", "comma_list"])
+def test_cli_runs_an_ensemble(tmp_path, monkeypatch, flags):
+    """``--ensemble`` and a comma list of ``--model`` build one ensemble
+    surrogate of the listed models, as the JAX CLI does."""
+    from transferattack_torch import main as tmain
+
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path / "weights"))  # seeded inits
+    data = make_fake_dataset(str(tmp_path / "data"), n=4, size=32, num_classes=10)
+    out = tmp_path / "adv"
+    tmain.main(["--attack", "ens", "--model", "toy_cnn,toy_cnn2", *flags, "--epoch", "2",
+                "--batchsize", "4", "--input_dir", data, "--output_dir", str(out),
+                "--device", "cpu"])
+    names = sorted(os.listdir(os.path.join(data, "images")))
+    assert sorted(n for n in os.listdir(out) if n.endswith(".png")) == names
+    moved = 0
+    for n in names:
+        clean = np.round(tdata.load_image(os.path.join(data, "images", n)) * 255)
+        adv = np.asarray(Image.open(out / n)).astype(np.float64)
+        assert adv.shape == clean.shape == (224, 224, 3)
+        assert np.abs(adv - clean).max() <= 16  # eps = 16/255, in levels
+        moved += int((adv != clean).sum())
+    assert moved > 0
+    meta = json.load(open(out / "attack_meta.json"))
+    assert meta["model"] == "toy_cnn,toy_cnn2"
+    assert {"toy_cnn", "toy_cnn2"} <= set(meta["fallback_weights_used"])
 
 
 def test_cli_and_bench_run_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

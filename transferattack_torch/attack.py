@@ -124,7 +124,10 @@ class Attack:
         self.model.module.eval().requires_grad_(False)
         if self.compute_dtype is not None:
             self.model.module.to(self.compute_dtype)
-            self.model.compute_dtype = self.compute_dtype
+            # an ensemble's members run in it too when an attack calls one
+            # alone (JAX leaves them at None: fp32 on bf16 weights)
+            for s in (self.model, *self.model.members):
+                s.compute_dtype = self.compute_dtype
         self.epoch = int(epoch)
         self.eps = float(eps)
         self.alpha = float(alpha)
@@ -134,7 +137,11 @@ class Attack:
         self.norm = norm
         self.loss_name = loss
         self.seed = int(seed)
+        # backward passes of B images through one model (an ensemble pass
+        # counts one a member), and forward-only member passes where a key
+        # makes them beside its gradients (the ensemble keys)
         self.grad_evals = 0
+        self.forward_evals = 0
 
     # ------------------------------------------------------------------
     # hooks — override in subclasses
@@ -198,11 +205,12 @@ class Attack:
         point's own loss (a mean over the stack would scale every gradient by
         ``1/k``); eval-mode BatchNorm couples no images, so each gradient is
         the one ``input_grad`` gives.  ``grad_evals`` counts the batches of B
-        images taken through the surrogate's backward."""
+        images taken through the surrogate's backward, once a member of an
+        ensemble."""
         points = points.detach().requires_grad_(True)
         xs = [self.transform(p, state, gen) for p in points]
         logits = self.get_logits(xs[0] if len(xs) == 1 else torch.cat(xs))
-        self.grad_evals += logits.shape[0]
+        self.grad_evals += logits.shape[0] * max(len(self.model.members), 1)
         loss = sum(self.get_loss(part, y) for part in logits.chunk(len(xs)))
         (grad,) = torch.autograd.grad(loss, points)
         return grad

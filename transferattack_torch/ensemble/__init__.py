@@ -1,0 +1,4 @@
+"""Ensemble attacks (counterpart of ``transferattack_tpu/ensemble``): several
+surrogates at once, through :func:`~transferattack_torch.models.make_ensemble`
+(``ens.py``: ENS, SVRE, CWA, AdaEA, SMER).
+"""

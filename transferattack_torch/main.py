@@ -4,6 +4,8 @@
         --attack mifgsm --model resnet50 --bf16          # attack: PNGs in, PNGs out
     python -m transferattack_torch.main --eval --input_dir ./data \\
         --output_dir ./adv                               # transfer ASR, 8 models
+    python -m transferattack_torch.main --attack ens --model resnet50,vgg16 \\
+        --ensemble ...                                   # an ensemble surrogate
 
 Attack mode crafts ``images + delta`` for every image of ``input_dir`` and
 writes them as PNGs to ``output_dir``, with ``attack_meta.json``.  Eval mode
@@ -58,8 +60,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="override step size (accepts 1.6/255 or float)")
     p.add_argument("--momentum", default=None, type=float,
                    help="override the momentum decay factor")
-    p.add_argument("--model", default="resnet50", type=str)
-    p.add_argument("--ensemble", action="store_true")
+    p.add_argument("--model", default="resnet50", type=str,
+                   help="a registry name, or a comma list: an ensemble of them")
+    p.add_argument("--ensemble", action="store_true",
+                   help="the --model list as an ensemble, even of one name")
     p.add_argument("--input_dir", default="./data", type=str)
     p.add_argument("--output_dir", default="./results", type=str)
     p.add_argument("--targeted", action="store_true")
@@ -85,9 +89,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     """Refuse the JAX CLI's options that the port does not have yet."""
-    if args.ensemble or "," in args.model:
-        raise NotImplementedError("--ensemble and comma lists of --model are not "
-                                  "ported yet (ensembles)")
     if args.model_axis > 0:
         raise NotImplementedError("--model_axis is not ported yet (ensemble "
                                   "members on devices of their own)")
@@ -115,8 +116,10 @@ def run_attack(args) -> None:
     _check_ported(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
+    # an ensemble of the listed models, as the JAX CLI builds it
+    model = args.model.split(",") if (args.ensemble or "," in args.model) else args.model
     attacker = build_attack(
-        args.attack, model_name=args.model, targeted=args.targeted,
+        args.attack, model_name=model, targeted=args.targeted,
         overrides={"epoch": args.epoch, "eps": args.eps, "alpha": args.alpha,
                    "momentum": args.momentum},
         device=device, **({"compute_dtype": "bfloat16"} if args.bf16 else {}),

@@ -123,6 +123,9 @@ class Surrogate:
     # keywords every forward passes to the backbone (a ViT's ``surgery``:
     # ``models.vit.with_surgery`` makes such a view of a surrogate)
     forward_kwargs: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # an ensemble's members (:func:`make_ensemble`): one surrogate a
+    # submodule of ``module``, sharing its parameters; empty for one model
+    members: Tuple["Surrogate", ...] = ()
 
     def apply(self, x, tap_fns: Optional[Dict[str, Callable]] = None,
               params: Optional[Dict[str, torch.Tensor]] = None, **backbone_kwargs):
@@ -220,12 +223,19 @@ class Surrogate:
             shape = self.features(one, (layer,))[1][layer].shape
         return (x_shape[0],) + tuple(shape[1:])
 
+    def _backbone(self) -> nn.Module:
+        if self.members:
+            raise ValueError(f"the ensemble {self.name!r} has no taps (nor has JAX's); "
+                             "tap one of its members, surrogate.members[i]")
+        return self.module.backbone
+
     def tap_keys(self) -> List[str]:
         """JAX's key of every tap of the backbone: the backbone's own
         ``tap_keys`` where it has them (a ViT's ``blocks_{i}``, Inception-
-        ResNet-v2's ``repeat_*``), else the stem conv ``conv1``, each stage
-        ``stage{i}`` and each block ``layer{i}_{j}``."""
-        backbone = self.module.backbone
+        ResNet-v2's ``repeat_*``, DenseNet's ``block{i}``), else the stem
+        conv ``conv1``, each stage ``stage{i}`` and each block
+        ``layer{i}_{j}``.  An ensemble raises ``ValueError``."""
+        backbone = self._backbone()
         if hasattr(backbone, "tap_keys"):
             return backbone.tap_keys()
         keys = [tap_key(n) for n, _ in backbone.named_modules()]
@@ -233,8 +243,9 @@ class Surrogate:
 
     def tap_module(self, layer: str) -> nn.Module:
         """The module whose output is the tap ``layer``, in either naming
-        (or as the backbone's ``tap_path`` maps a JAX key)."""
-        backbone = self.module.backbone
+        (or as the backbone's ``tap_path`` maps a JAX key).  An ensemble
+        raises ``ValueError``."""
+        backbone = self._backbone()
         modules = dict(backbone.named_modules())
         name = layer.replace(" ", ".").strip()
         own = backbone.tap_path(name) if hasattr(backbone, "tap_path") else None
@@ -389,13 +400,46 @@ def make_model(
                      num_classes=getattr(backbone, "num_classes", 1000))
 
 
+class EnsembleModule(nn.Module):
+    """Members in sequence on one input (JAX's ``_EnsembleModule``, the
+    reference's ``EnsembleModel``): the mean of their logits (``mode``
+    ``"mean"``) or their logits stacked on a leading axis (``"ind"``).  Each
+    member is a :class:`WrappedModel` with its own preprocessing."""
+
+    def __init__(self, members: Sequence[nn.Module], mode: str = "mean"):
+        super().__init__()
+        if mode not in ("mean", "ind"):
+            raise NotImplementedError(mode)
+        self.members = nn.ModuleList(members)
+        self.mode = mode
+
+    def forward(self, x, **backbone_kwargs):
+        stacked = torch.stack([m(x, **backbone_kwargs) for m in self.members])
+        return stacked.mean(0) if self.mode == "mean" else stacked
+
+
+def make_ensemble(names: Sequence[str], mode: str = "mean", **kwargs) -> Surrogate:
+    """An ensemble surrogate of the registered ``names`` (JAX's
+    ``make_ensemble``), each built by :func:`make_model` with ``kwargs``.
+    Its ``input_size`` is its largest member's; its ``members`` are one
+    surrogate a member, on the same modules."""
+    subs = [make_model(n, **kwargs) for n in names]
+    module = EnsembleModule([s.module for s in subs], mode=mode)
+    return Surrogate(name="+".join(names), module=module,
+                     input_size=max(s.input_size for s in subs),
+                     num_classes=subs[0].num_classes, members=tuple(subs))
+
+
 def resolve_model(spec, **kwargs) -> Surrogate:
+    """A surrogate as it is, a registry name, or a list of names (an
+    ensemble)."""
     if isinstance(spec, Surrogate):
         return spec
     if isinstance(spec, str):
         return make_model(spec, **kwargs)
-    raise TypeError(f"Cannot resolve model spec {spec!r} (ensembles are not "
-                    "ported yet)")
+    if isinstance(spec, (list, tuple)):
+        return make_ensemble(spec, **kwargs)
+    raise TypeError(f"Cannot resolve model spec {spec!r}")
 
 
 # model definition modules register themselves on import
@@ -410,3 +454,4 @@ from . import swin  # noqa: E402,F401
 from . import visformer  # noqa: E402,F401
 from . import cait  # noqa: E402,F401
 from . import inception_resnet  # noqa: E402,F401
+from . import densenet  # noqa: E402,F401

@@ -28,7 +28,11 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   ``transformers_i_*``, ``*_downsample``, ``*_pool``), and MobileNetV2's
   named pairs back to torchvision's ``Sequential`` indices
   (``features_N/conv`` → ``features.N.0``, ``conv_k/bn`` → ``conv.k.1``,
-  ``bn_k`` → ``conv.{k+1}``).
+  ``bn_k`` → ``conv.{k+1}``), DenseNet's ``denseblockI_denselayerJ`` →
+  ``features.denseblockI.denselayerJ`` and ``transitionI``, ``conv0``,
+  ``norm0``, ``norm5`` → under ``features.``, and an ensemble's
+  ``members_i`` → ``members.i`` (one flat dict of a JAX ensemble loads into
+  the port's).
 
 The port's module names are the ones the JAX converter maps (torchvision's
 and timm's; Visformer's are the JAX model's own, see its module), so a
@@ -46,7 +50,7 @@ import torch
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
-                      r"|repeat|repeat_[12]|branch\d)_(\d+)")
+                      r"|repeat|repeat_[12]|branch\d|members)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -54,12 +58,16 @@ _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsampl
 # inside a block): its ``conv``/``bn`` children are Sequential entries 0/1
 _CONV_BN_RELU = re.compile(r"features_\d+|conv_\d+")
 _PROJECTION_BN = re.compile(r"bn_(\d+)")  # MobileNetV2's last BN of a block
+# DenseNet's children of torchvision's ``features`` Sequential
+_DENSE_LAYER = re.compile(r"(denseblock\d+)_(denselayer\d+)")
+_DENSE_TOP = re.compile(r"transition\d+|conv0|norm0|norm5")
 
 
 def _module_path(path) -> list:
     parts, prev = [], ""
     for p in path:
         staged, indexed = _STAGED.fullmatch(p), _INDEXED.fullmatch(p)
+        dense = _DENSE_LAYER.fullmatch(p)
         if p in _RENAMED:
             parts += _RENAMED[p]
         elif staged:
@@ -69,6 +77,10 @@ def _module_path(path) -> list:
             parts.append("0" if p == "conv" else "1")
         elif _PROJECTION_BN.fullmatch(p):
             parts += ["conv", str(int(p[3:]) + 1)]
+        elif dense:
+            parts += ["features", *dense.groups()]
+        elif _DENSE_TOP.fullmatch(p):
+            parts += ["features", p]
         elif indexed:
             parts += [indexed.group(1), indexed.group(2)]
         else:
