@@ -140,7 +140,25 @@ random weights.  Phases:
     only) its code implies, and seconds, images per second and peak memory;
     (c) the CLI, ``--attack ens --model resnet50,vgg16 --bf16`` with and
     without ``--ensemble``, over 8 of phase 9's PNGs: 8 PNGs within 16
-    levels of their inputs, 1 batch and 10 launches each.
+    levels of their inputs, 1 batch and 10 launches each;
+18. the rest of ensemble/ (LGV, MBA, SASD-WS, RFCoA) and the learned
+    transformations (ATTA, STM, PAM, AITL, LPM): (a) on the card against
+    the CPU, fp32 with TF32 off: each auxiliary network (RFCoA's encoder and
+    decoder, StyleNet, the SemanticPredictor, AITL's three) on seeded
+    weights within ``1e-3·max|ref|``, and each key on ResNet-18 at 64²
+    (LPM at 56², batch 1, its search on small gray models with the CPU's
+    scores, the card's own within ``1e-3·max|ref|``), batch 2, 2 iterations,
+    one seeded CPU generator handed to both calls: deltas agree in sign on
+    more than 99% of elements (RFCoA by its delta's cosine, > 0.99); (b) each
+    at full width on its default surrogate, bf16, batch 32 (LPM 1), official
+    hyperparameters (RFCoA on its three members for one target class, printed
+    as ``reduced``), labels the surrogate's own predictions (SASD-WS targeted
+    at the prediction + 500): bounds (eps but for RFCoA, [0, 1] for all), a
+    finite delta, its objective moved its way, exactly the update-kernel
+    launches its code implies (10, SASD-WS 300, RFCoA 0, LPM 230), and its
+    gradient evaluations, seconds, images per second and peak memory; (c)
+    the CLI on 2 PNGs: ``rfcoa`` writes one subdirectory a target class,
+    ``lpm --batchsize 4`` runs at batch 1.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -195,7 +213,8 @@ from transferattack_torch.ops.fused_update import (
     fused_sign_update_plain,
 )
 from transferattack_torch.scripts.bench_png import decode_ms
-from transferattack_torch.utils import cnn_model_paper, vit_model_paper
+from transferattack_torch.utils import (cnn_model_paper, generation_target_classes,
+                                        vit_model_paper)
 from transferattack_torch.utils.data import load_image, save_images
 from transferattack_torch.utils.timing import bound_ms, card, median_ms
 
@@ -324,6 +343,24 @@ ENSEMBLE_PAIR = {"model_name": ["resnet18", "toy_cnn2"], "num_classes": 10, "inp
 RESNETS = ["resnet18", "resnet34", "resnet50", "resnet101"]
 RFCOA_SET = ["resnet50", "vgg16", "densenet121"]
 CLI_ENSEMBLE_IMAGES = 8
+# phase 18: the rest of ensemble/ and the learned transformations
+LEARNED_KEYS = ("lgv", "mba", "sasd_ws", "rfcoa", "atta", "stm", "pam", "aitl", "lpm")
+# 18a: ResNet-18 at 64² (LPM at 56², a multiple of its 7×7 grid), short loops,
+# few draws; RFCoA on ResNet-18 + toy_cnn2 (ten classes, label pairs), LPM's
+# search cut to one generation of four on small gray models
+LEARNED_SMALL = {
+    "lgv": {}, "mba": {}, "sasd_ws": {}, "atta": {}, "pam": {}, "aitl": {},
+    "stm": {"num_style": 4, "sample_chunk": 2},
+    "rfcoa": {"model_name": ["resnet18", "toy_cnn2"], "num_classes": 10, "epoch": 3},
+    "lpm": {"gray_models": ("resnet18", "toy_cnn", "toy_cnn2"), "pop_size": 4, "de_iters": 1,
+            "score_chunk": 4, "m_num": 3, "inner_epoch": 3},
+}
+# 18a: LGV and MBA step by step from the CPU's state: on LGV's inputs here
+# the seeded fallback draws jittered set 8 twice, whose fp32 gradient parts
+# card from CPU on 0.14% of signs in the first step, and the second step on
+# the same set compounds that (0.989746 over the whole run on an H100)
+STEPWISE = ("lgv", "mba")
+CLI_LEARNED_IMAGES = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -1555,6 +1592,242 @@ def run_ensemble_family(dev, smi) -> dict:
     return launches
 
 
+def learned_launches(key: str, atk) -> int:
+    """The update-kernel launches of one call, as the code implies them:
+    RFCoA steps through its own Adam; LPM's candidates' inner attacks take a
+    launch an inner iteration a chunk (its chunks: the population, then its
+    offspring each generation), then its final loop one an iteration."""
+    if key == "rfcoa":
+        return 0
+    if key == "lpm":
+        chunk = -(-atk.pop_size // atk.score_chunk)
+        offspring = max(int(0.3 * atk.pop_size), 1) + max(int(0.7 * atk.pop_size), 1)
+        chunks = chunk + atk.de_iters * -(-offspring // atk.score_chunk)
+        return chunks * atk.inner_epoch + atk.epoch
+    return atk.epoch
+
+
+def learned_steps_card_vs_cpu(atks, xs, ys) -> list:
+    """Each iteration's delta sign agreement, the card's step taken from the
+    CPU's state and both drawing from one seeded CPU generator each."""
+    from transferattack_torch.attack import AttackState
+
+    x = {w: torch.from_numpy(xs).to(w) for w in atks}
+    y = {w: torch.from_numpy(ys).to(w) for w in atks}
+    gen = {w: torch.Generator().manual_seed(86) for w in atks}
+    state = atks["cpu"].init_state(x["cpu"], y["cpu"], gen["cpu"])
+    agree = []
+    for t in range(atks["cpu"].epoch):
+        card = atks["cuda"].step(x["cuda"], y["cuda"], AttackState(
+            delta=state.delta.cuda(), momentum=state.momentum.cuda(), step=t), gen["cuda"])
+        state = atks["cpu"].step(x["cpu"], y["cpu"], state, gen["cpu"])
+        agree.append(float((torch.sign(card.delta.cpu()) == torch.sign(state.delta))
+                           .float().mean()))
+    return agree
+
+
+def aux_nets_card_vs_cpu() -> dict:
+    """Each auxiliary network on seeded weights, fp32, on the card and on
+    the CPU: {name: max|card - CPU| / max|CPU|}."""
+    from transferattack_torch.ensemble import rfcoa
+    from transferattack_torch.input_transformation import learned
+
+    gen = torch.Generator().manual_seed(18)
+    img = lambda size: torch.rand(2, 3, size, size, generator=gen)  # noqa: E731
+    nets = {"rfcoa encoder": (rfcoa.VGGEncoder(), (img(224),)),
+            "rfcoa decoder": (rfcoa.VGGDecoder(), (torch.rand(2, 512, 7, 7, generator=gen),)),
+            "atta": (learned.ATTAModel(), (img(224),)),
+            "stylenet": (learned.StyleNet(), (img(224), torch.randn(2, 100, generator=gen))),
+            "semantic predictor": (learned.SemanticPredictor(), (img(224),)),
+            "aitl encoder": (learned.AITLEncoder(), (torch.rand(5, 80, generator=gen),)),
+            "aitl decoder": (learned.AITLDecoder(), (torch.randn(5, 128, generator=gen),)),
+            "aitl predictor": (learned.AITLPredictor(),
+                               (img(224)[:1], torch.randn(5, 128, generator=gen)))}
+    out = {}
+    for name, (net, inputs) in nets.items():
+        init_weights(net, gen)
+        net.eval()
+        with torch.no_grad():
+            ref = net(*inputs)
+            card = copy.deepcopy(net).cuda()(*(t.cuda() for t in inputs)).cpu()
+        out[name] = rel_err(card, ref)
+    return out
+
+
+def learned_objective(key: str, atk, x, y, y_tgt, delta) -> tuple:
+    """(the objective before, after, which way it must move, its name) of a
+    18b call: the surrogate's CE at the label (untargeted keys; LGV and MBA
+    on the base weights), at the target (SASD-WS, lower), and RFCoA's own
+    loss at its first and its last Adam step (lower)."""
+    if key == "rfcoa":
+        return (*atk.losses, "down", "its loss, first and last Adam step")
+    label = y_tgt if atk.targeted else y
+    with torch.no_grad():
+        ce0 = float(softmax_cross_entropy(atk.model.apply(x), label).mean())
+        ce1 = float(softmax_cross_entropy(atk.model.apply(x + delta), label).mean())
+    return ce0, ce1, "down" if atk.targeted else "up", "CE at the target" if atk.targeted \
+        else "CE at the label"
+
+
+def run_learned_family(dev, smi) -> dict:
+    """Phase 18; returns each call's update-kernel launches in 18b."""
+    check(all(k in tt.attack_zoo for k in LEARNED_KEYS), "a phase-18 key is not registered")
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for name, err in aux_nets_card_vs_cpu().items():
+        check(err <= EVAL_TOL, f"{name}: fp32 output card vs CPU max|d|/max|ref| = {err}")
+        print(f"[18a learned] {name}, seeded, fp32: output card vs CPU max|d|/max|ref| "
+              f"{err:.3e} (bound {EVAL_TOL:g})")
+    rng = np.random.RandomState(85)
+    for key in LEARNED_KEYS:
+        size = 56 if key == "lpm" else 64
+        batch = 1 if key == "lpm" else 2
+        xs = rng.rand(batch, size, size, 3).astype(np.float32)
+        ys = rng.randint(0, 10, size=batch)
+        if key in ("sasd_ws", "rfcoa"):  # targeted: (label, target) pairs
+            ys = np.stack([ys, (ys + 3) % 10], axis=1)
+        kw = {"model_name": "resnet18", "pretrained": False, "input_size": size, "epoch": 2,
+              **LEARNED_SMALL[key]}
+        atks = {w: tt.load_attack_class(key)(device=w, **kw) for w in ("cpu", "cuda")}
+        if key == "lpm":  # the card scores each chunk; the search takes the CPU's scores
+            scored, seen = [], {}
+            cpu_score = atks["cpu"].score_all
+
+            def record(x_, y_, bits):
+                scored.append(cpu_score(x_, y_, bits))
+                return scored[-1]
+
+            def replay(x_, y_, bits, own=atks["cuda"].score_all):
+                card_scores, ref = own(x_, y_, bits), scored.pop(0)
+                seen["err"] = max(seen.get("err", 0.0), float(np.abs(card_scores - ref).max()
+                                                              / np.abs(ref).max()))
+                return ref
+
+            atks["cpu"].score_all, atks["cuda"].score_all = record, replay
+        d = {w: atks[w](xs, ys, generator=torch.Generator().manual_seed(86)).cpu().numpy()
+             for w in ("cpu", "cuda")}
+        if key in STEPWISE:
+            whole = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+            agree = min(learned_steps_card_vs_cpu(atks, xs, ys))
+            check(agree > 0.99, f"{key}: fp32 step delta sign agreement card vs CPU {agree}")
+            print(f"[18a learned] {key}: resnet18 at {size}², batch {batch}, fp32: each step "
+                  f"from the CPU's state, delta sign agreement card vs CPU at least {agree:.6f} "
+                  f"(the whole run {whole:.6f}, printed, not held: see STEPWISE)")
+            continue
+        if key == "rfcoa":  # a continuous composite, not a sign step
+            a, b = d["cuda"].ravel().astype(np.float64), d["cpu"].ravel().astype(np.float64)
+            cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            check(cos > 0.99, f"rfcoa: fp32 delta cosine card vs CPU {cos}")
+            adv = xs + d["cuda"]
+            check(adv.min() >= -1e-6 and adv.max() <= 1 + 1e-6, "rfcoa: x + delta leaves [0, 1]")
+            what = f"delta cosine card vs CPU {cos:.6f}"
+        else:
+            agree = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+            check(agree > 0.99, f"{key}: fp32 delta sign agreement card vs CPU {agree}")
+            check(0 < np.abs(d["cuda"]).max() <= EPS + 1e-6, f"{key}: |delta|inf on the card")
+            what = f"delta sign agreement card vs CPU {agree:.6f}"
+        if key == "lpm":
+            check(seen["err"] <= 1e-3, f"lpm: chunk scores card vs CPU {seen['err']}")
+            what += f"; chunk scores card vs CPU max|d|/max|ref| {seen['err']:.3e}"
+        print(f"[18a learned] {key}: {kw['model_name']} at {size}², batch {batch}, fp32: {what}")
+        del atks
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # (b) full width, bf16, batch 32 (LPM 1), official hyperparameters
+    launches = {}
+    for i, key in enumerate(LEARNED_KEYS):
+        atk = tt.load_attack_class(key)(compute_dtype="bfloat16", device="cuda")
+        size = atk.model.input_size
+        batch = 1 if key == "lpm" else GRADIENT_BATCH
+        x = torch.from_numpy(np.random.RandomState(87 + i).rand(batch, size, size, 3)
+                             .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            y = atk.model.apply(x).argmax(-1)
+        y_tgt = (y + 500) % 1000
+        labels = torch.stack([y, y_tgt], 1) if atk.targeted and key != "rfcoa" else y
+        reduced = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        if key == "rfcoa":  # one call a target class, each 300 Adam steps: the first class
+            delta = atk(x, labels, idx=0)
+            reduced.append("1 of its 10 target classes (class 24)")
+        else:
+            delta = atk(x, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[key] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = learned_launches(key, atk)
+        check(n == want, f"{key}: {n} update-kernel launches, its code implies {want}")
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+              f"{key}: delta not finite or of shape {tuple(delta.shape)}")
+        linf = float(delta.abs().max())
+        if key != "rfcoa":  # RFCoA's composite holds [0, 1] only
+            check(0.0 < linf <= EPS + 1e-6, f"{key}: |delta|inf = {linf}")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"{key}: x + delta leaves [0, 1]")
+        if key == "rfcoa":
+            y_tgt = torch.full_like(y, 24)
+        before, after, way, what = learned_objective(key, atk, x, y, y_tgt, delta)
+        check(after < before if way == "down" else after > before,
+              f"{key}: {what} did not move {way}: {before} -> {after}")
+        members = len(atk.model.members) or 1
+        tag = f"{key}{' (reduced: ' + '; '.join(reduced) + ')' if reduced else ''}"
+        print(f"[18b learned] {tag}: {atk.model.name} bf16, batch {batch}, {size}²: "
+              f"{atk.grad_evals} gradient evaluations, {atk.forward_evals} forward-only, "
+              f"{n} update-kernel launches, {secs:.3f} s, {batch / secs:.2f} img/s, peak "
+              f"memory {peak:.2f} GiB, |delta|inf*255 = {linf * 255:.4f}, {what} "
+              f"{before:.6g} -> {after:.6g} on {smi}")
+        print(json.dumps({"learned_key": key, "model": atk.model.name, "members": members,
+                          "batch": batch, "size": size, "grad_evals": atk.grad_evals,
+                          "forward_evals": atk.forward_evals, "launches": n,
+                          "seconds": secs, "img_per_s": batch / secs, "peak_gib": peak,
+                          "objective": [before, after], "reduced": reduced}))
+        del atk, delta, adv, x
+        torch.cuda.empty_cache()
+
+    # (c) the CLI: RFCoA once a target class, LPM at batch 1
+    with tempfile.TemporaryDirectory() as work:
+        data = os.path.join(work, "data")
+        names, clean = write_cli_data(data, CLI_LEARNED_IMAGES)
+        out_dir = os.path.join(work, "rfcoa")
+        cli.main(["--attack", "rfcoa", "--epoch", "2", "--bf16", "--input_dir", data,
+                  "--output_dir", out_dir])
+        classes = sorted(int(c) for c in os.listdir(out_dir) if c.isdigit())
+        check(classes == sorted(generation_target_classes),
+              f"rfcoa: the CLI wrote the subdirectories {classes}")
+        for c in classes:
+            written = sorted(os.listdir(os.path.join(out_dir, str(c))))
+            check(written == names, f"rfcoa: {c}/ holds {written}")
+        print(f"[18c learned] `--attack rfcoa --epoch 2 --bf16` over {len(names)} PNGs: one "
+              f"subdirectory for each of the {len(classes)} target classes, {len(names)} PNGs "
+              f"each")
+        from transferattack_torch.input_transformation import learned
+        sizes, call = [], learned.LPM.__call__
+        learned.LPM.__call__ = lambda self, data_, *a, **k: sizes.append(len(data_)) or call(
+            self, data_, *a, **k)
+        try:
+            out_dir = os.path.join(work, "lpm")
+            fused_sign_update.launches = 0
+            cli.main(["--attack", "lpm", "--bf16", "--batchsize", "4", "--input_dir", data,
+                      "--output_dir", out_dir])
+        finally:
+            learned.LPM.__call__ = call
+        check(sizes == [1] * len(names), f"lpm: the CLI ran batches of {sizes}")
+        check_cli_outputs(out_dir, names, clean)
+        n = launches["cli_lpm"] = fused_sign_update.launches
+        check(n == len(names) * launches["lpm"], f"lpm: the CLI launched the update kernel "
+              f"{n} times, expected {launches['lpm']} an image")
+        print(f"[18c learned] `--attack lpm --bf16 --batchsize 4` over {len(names)} PNGs: "
+              f"batches of {sizes}, {n} update-kernel launches")
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -1929,6 +2202,10 @@ def main() -> None:
 
     # 17. the ensemble surrogate, DenseNet and the ensemble keys
     ensemble_launches_ = run_ensemble_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 18. the rest of ensemble/ and the learned transformations
+    learned_launches_ = run_learned_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -1946,6 +2223,7 @@ def main() -> None:
          "launches_model_related": model_related_launches_,
          "launches_vit": vit_launches_,
          "launches_ensemble": ensemble_launches_,
+         "launches_learned": learned_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

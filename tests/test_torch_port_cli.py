@@ -12,7 +12,9 @@
   ``toy_cnn,resnet18``, with and without ``--bf16`` (the eval model's
   variables rounded to bf16); and the same attack bar for MIG, a
   gradient-family key that drops ``--alpha``; ENS on ``toy_cnn,toy_cnn2``
-  with and without ``--ensemble``, its outputs within eps of the inputs.
+  with and without ``--ensemble``, its outputs within eps of the inputs;
+  RFCoA once for each target class into ``<output_dir>/<class>/``, read
+  back by ``--eval``; LPM at batch 1 whatever ``--batchsize`` says.
 * ``bench.py``: its JSON line on ``toy_cnn``.
 """
 import json
@@ -397,3 +399,69 @@ def test_bench_prints_its_json_line(capsys):
     assert line["unit"] == "images/sec" and line["reps"] == 8
     assert line["value"] > 0 and line["spread"] >= 0
     assert line["device"] == {"name": "cpu", "power_limit": None}
+
+
+def test_cli_runs_rfcoa_once_a_target_class(tmp_path, monkeypatch):
+    """``--attack rfcoa`` writes one subdirectory for each of the ten target
+    classes, as the JAX CLI does, and ``--eval`` reads them back.  Toy
+    members of 1000 classes (the targets go up to 919) on 64² inputs (the
+    autoencoder's latent 2×2), 2 Adam steps."""
+    import functools
+
+    import transferattack_torch.models as tm
+    from transferattack_torch import main as tmain
+    from transferattack_torch.models.toy import ToyCNN
+    from transferattack_torch.utils import generation_target_classes
+
+    for name, width in (("toy_cnn", 16), ("toy_cnn2", 24)):
+        _, *meta = tm._MODEL_REGISTRY[name]
+        monkeypatch.setitem(tm._MODEL_REGISTRY, name,
+                            (lambda w=width, **kw: ToyCNN(num_classes=1000, width=w), *meta))
+    monkeypatch.setattr(tmain, "AdvDataset", functools.partial(tmain.AdvDataset, size=(64, 64)))
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path / "weights"))  # seeded inits
+    monkeypatch.chdir(tmp_path)
+    data = make_fake_dataset(str(tmp_path / "data"), n=2, size=64)
+    out = tmp_path / "adv"
+    common = ["--attack", "rfcoa", "--batchsize", "2", "--input_dir", data,
+              "--output_dir", str(out), "--device", "cpu"]
+    tmain.main([*common, "--model", "toy_cnn,toy_cnn2", "--epoch", "2"])
+    names = sorted(os.listdir(os.path.join(data, "images")))
+    assert sorted(p.name for p in out.iterdir() if p.is_dir()) == sorted(
+        str(c) for c in generation_target_classes)
+    for c in generation_target_classes:
+        assert sorted(os.listdir(out / str(c))) == names
+        assert np.asarray(Image.open(out / str(c) / names[0])).shape == (64, 64, 3)
+    assert json.load(open(out / "attack_meta.json"))["n_images"] == 2
+    tmain.main([*common, "--eval", "--eval_models", "toy_cnn"])
+    rows = open(tmp_path / "results_eval.txt").read().splitlines()
+    assert len(rows) == 1 and rows[0].startswith(str(out)) and rows[0].count("|") == 2
+
+
+def test_cli_runs_lpm_at_batch_1(tmp_path, monkeypatch):
+    """LPM's ``requires_batchsize`` overrides ``--batchsize 4``, as in the
+    JAX CLI.  Its gray models are toys and its candidates' scores a stub:
+    this is the CLI's batch rule, not LPM's search."""
+    import functools
+
+    import transferattack_torch.models as tm
+    from transferattack_torch import main as tmain
+    from transferattack_torch.input_transformation import learned as tlearned
+
+    monkeypatch.setattr(tlearned, "make_model",
+                        lambda name, **kw: tm.make_model("toy_cnn2", **kw))
+    monkeypatch.setattr(tlearned.LPM, "score_all",
+                        lambda self, x, y, bits: bits @ np.linspace(0.1, 1, bits.shape[1]))
+    sizes = []
+    call = tlearned.LPM.__call__
+    monkeypatch.setattr(tlearned.LPM, "__call__",
+                        lambda self, data, *a, **k: sizes.append(len(data)) or call(
+                            self, data, *a, **k))
+    monkeypatch.setattr(tmain, "AdvDataset", functools.partial(tmain.AdvDataset, size=(28, 28)))
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path / "weights"))
+    data = make_fake_dataset(str(tmp_path / "data"), n=3, size=28, num_classes=10)
+    out = tmp_path / "adv"
+    tmain.main(["--attack", "lpm", "--model", "toy_cnn", "--epoch", "2", "--batchsize", "4",
+                "--input_dir", data, "--output_dir", str(out), "--device", "cpu"])
+    assert sizes == [1, 1, 1]
+    assert sorted(n for n in os.listdir(out) if n.endswith(".png")) == sorted(
+        os.listdir(os.path.join(data, "images")))

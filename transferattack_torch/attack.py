@@ -96,6 +96,10 @@ class Attack:
     raises when no card is present.
     """
 
+    # the batch size the attack runs at, whatever the CLI's ``--batchsize``
+    # (LPM's 1); None takes any
+    requires_batchsize: Optional[int] = None
+
     def __init__(
         self,
         model_name: Union[str, Sequence[str], Any] = "resnet50",

@@ -32,8 +32,9 @@ from .models import (fallback_weights_used, make_model, resolve_device,
 from .utils import cnn_model_paper, generation_target_classes, vit_model_paper
 from .utils.data import AdvDataset, save_images
 
-# the generation attacks write one subdirectory per target class
-GENERATION_TARGETED = ("ttp", "m3d", "rfcoa")
+# the generation attacks write one subdirectory per target class (JAX's
+# tuple, with the keys the port has)
+GENERATION_TARGETED = ("rfcoa",)
 
 
 def parse_fraction(s: str) -> float:
@@ -124,6 +125,8 @@ def run_attack(args) -> None:
                    "momentum": args.momentum},
         device=device, **({"compute_dtype": "bfloat16"} if args.bf16 else {}),
     )
+    if attacker.requires_batchsize is not None:
+        args.batchsize = attacker.requires_batchsize
     dataset = AdvDataset(input_dir=args.input_dir, output_dir=args.output_dir,
                          targeted=args.targeted)
     pending = None
@@ -137,6 +140,16 @@ def run_attack(args) -> None:
             continue
         with (_profiled(args.profile_dir, device) if args.profile_dir and n_done == 0
               else contextlib.nullcontext()):
+            if args.attack in GENERATION_TARGETED:
+                # once a target class, into a subdirectory of its own
+                for idx, target_class in enumerate(generation_target_classes):
+                    t0 = time.perf_counter()
+                    delta = attacker(images, labels, idx=idx).cpu()
+                    spent["queue"] += time.perf_counter() - t0
+                    _write(os.path.join(args.output_dir, str(target_class)), delta, None,
+                           images, names, spent)
+                n_done += len(names)
+                continue
             # pipeline: queue this batch on the device, and its delta's copy
             # to the host behind it; then write the previous batch's PNGs
             # while the device works

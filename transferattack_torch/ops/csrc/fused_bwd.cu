@@ -55,11 +55,10 @@
 // Any M (the last m-tile is masked); channel counts are multiples of 16 (a
 // partial k-step runs fewer 16-wide products, a partial n-tile is masked).
 //
-// On an H100 80GB HBM3 at 700 W (PERF.md) the three launches above take
-// 0.179, 0.265 and 0.197 ms: 2.5 to 2.6 TB/s, the rate torch.matmul reaches
-// on the same card for a product that reads neither mask nor skip, and 1.3
-// to 1.5x faster than the wmma kernel this replaces.  The bottleneck chain
-// they serve takes 0.609 ms against 0.878 before.
+// On an H100 80GB HBM3 at 700 W (PERF.md, final run of the redesign) the
+// three launches above take 0.1782, 0.2598 and 0.1928 ms: 2.6 to 2.7 TB/s,
+// and 1.3 to 1.5x faster than the wmma kernel this replaces.  The
+// bottleneck chain they serve takes 0.6051 ms against 0.878 before.
 //
 // Plain C entry point, built with nvcc into a shared library and called
 // through ctypes (transferattack_torch/ops/_build.py).

@@ -32,7 +32,12 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   ``features.denseblockI.denselayerJ`` and ``transitionI``, ``conv0``,
   ``norm0``, ``norm5`` → under ``features.``, and an ensemble's
   ``members_i`` → ``members.i`` (one flat dict of a JAX ensemble loads into
-  the port's).
+  the port's); the auxiliary networks of RFCoA and the learned
+  transformations: ``enc_i``/``dec_i`` → ``enc.i``/``dec.i`` (``dec_out``
+  as it is), StyleNet's ``layers_i`` → ``layers.i``, ATTA's ``conv_0``/
+  ``conv_2`` → ``conv.0``/``conv.2``, AITL's ``fc1_0``/``fc1_3`` →
+  ``fc1.0``/``fc1.3`` (a ``Sequential``'s Linear and BatchNorm1d, its
+  statistics too).
 
 The port's module names are the ones the JAX converter maps (torchvision's
 and timm's; Visformer's are the JAX model's own, see its module), so a
@@ -50,7 +55,7 @@ import torch
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
-                      r"|repeat|repeat_[12]|branch\d|members)_(\d+)")
+                      r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
