@@ -159,6 +159,21 @@ random weights.  Phases:
     gradient evaluations, seconds, images per second and peak memory; (c)
     the CLI on 2 PNGs: ``rfcoa`` writes one subdirectory a target class,
     ``lpm --batchsize 4`` runs at batch 1.
+19. the generators, the TTP family and FAP: (a) on the card against the
+    CPU, fp32 with TF32 off: GeneratorResnet and AdvGAN at 64² (AdvGAN also
+    at 65², its crop path) and ADA at 67² on seeded weights, raw output
+    within ``1e-3·max|ref|``; FAP on ResNet-18 at 64², 2 images, deltas
+    agreeing in sign on more than 99% of elements, and its gate at 224²
+    within 1e-5; (b) at full width, batch 32, on seeded fallbacks (fp32
+    generators, ``--bf16`` ignored as in JAX): TTP and M3D with all ten class
+    generators (``idx`` 0-9), CDTP, LTP, DSVA, GE-AdvGAN at 224², ADA at 224²
+    (edge-padded to 227²) and 299²: bounds, a finite non-zero delta, one
+    generator forward a call, 0 update-kernel launches, ms a forward by CUDA
+    events, images per second, peak memory; FAP on ResNet-50 bf16 at 224², 20
+    iterations on the zigzag mask: eps 48/255, exactly 20 launches, CE risen;
+    (c) the CLI: ``--attack ttp`` on 2 PNGs writes one subdirectory a target
+    class, each PNG within 16 levels of its clean image, and ``--eval``
+    prints one row, the mean over the ten classes.
 
 Any failed phase ends the run with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
@@ -361,6 +376,12 @@ LEARNED_SMALL = {
 # the same set compounds that (0.989746 over the whole run on an H100)
 STEPWISE = ("lgv", "mba")
 CLI_LEARNED_IMAGES = 2
+# phase 19: the generators, the TTP family and FAP
+GENERATOR_KEYS = ("ttp", "m3d", "cdtp", "ltp", "dsva", "ge_advgan", "ada")
+GEN_TOL = 1e-3   # fp32 raw output, card vs CPU: max|d| / max|cpu|
+GATE_TOL = 1e-5  # FAP's gate, card vs CPU: max|d|
+FAP_EPS = 48 / 255  # 16/255 scaled by 192/top_n at the official top_n 64
+CLI_GENERATION_IMAGES = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -1828,6 +1849,205 @@ def run_learned_family(dev, smi) -> dict:
     return launches
 
 
+def generators_card_vs_cpu() -> dict:
+    """Each generator on seeded weights (BatchNorm off the identity), fp32,
+    on the card and on the CPU at 64² (AdvGAN also at 65², its crop path;
+    ADA at 67², a side ≡ 3 mod 4): {name: max|card - CPU| / max|CPU|} of
+    the raw output."""
+    from transferattack_torch.generation import generators as tgen
+
+    gen = torch.Generator().manual_seed(19)
+    out = {}
+    for name, net, size in (("GeneratorResnet", tgen.GeneratorResnet(), 64),
+                            ("AdvGANGenerator", tgen.AdvGANGenerator(), 64),
+                            ("AdvGANGenerator", tgen.AdvGANGenerator(), 65),
+                            ("ADAGenerator", tgen.ADAGenerator(), 67)):
+        init_weights(net, gen)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gen))
+                    m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
+        net.eval()
+        args = (torch.rand(2, 3, size, size, generator=gen),) + (
+            (torch.randn(2, 16, generator=gen),) if name == "ADAGenerator" else ())
+        with torch.no_grad():
+            ref = net(*args)
+            card = copy.deepcopy(net).cuda()(*(a.cuda() for a in args)).cpu()
+        check(card.shape == ref.shape, f"{name} at {size}²: card shape {tuple(card.shape)}")
+        out[f"{name} at {size}²"] = rel_err(card, ref)
+    return out
+
+
+def run_generation_family(dev, smi) -> dict:
+    """Phase 19; returns each call's update-kernel launches in 19b."""
+    check(all(k in tt.attack_zoo for k in GENERATOR_KEYS + ("fap",)),
+          "a phase-19 key is not registered")
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for name, err in generators_card_vs_cpu().items():
+        check(err <= GEN_TOL, f"{name}: fp32 raw output card vs CPU max|d|/max|ref| = {err}")
+        print(f"[19a generation] {name}, seeded, fp32: raw output card vs CPU max|d|/max|ref| "
+              f"{err:.3e} (bound {GEN_TOL:g})")
+    kw = {"model_name": "resnet18", "pretrained": False, "input_size": 64}
+    atks = {w: tt.load_attack_class("fap")(device=w, **kw) for w in ("cpu", "cuda")}
+    rng = np.random.RandomState(190)
+    delta = ((rng.rand(2, 224, 224, 3) - 0.5) * 0.4).astype(np.float32)  # negative entries too
+    gated = {w: atks[w].gate_delta(torch.from_numpy(delta).to(w)).cpu() for w in atks}
+    gate_err = float((gated["cuda"] - gated["cpu"]).abs().max())
+    gate_max = float(gated["cpu"].max())
+    check(gate_err <= GATE_TOL, f"fap: gate_delta card vs CPU max|d| = {gate_err}")
+    check(gate_max > 0, "fap: the gate passed nothing")
+    xs = rng.rand(2, 64, 64, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, size=2)
+    d = {w: atks[w](xs, ys).cpu().numpy() for w in atks}
+    agree = float((np.sign(d["cuda"]) == np.sign(d["cpu"])).mean())
+    check(agree > 0.99, f"fap: fp32 delta sign agreement card vs CPU {agree}")
+    print(f"[19a generation] fap: resnet18 at 64², batch 2, 20 iterations, fp32: delta sign "
+          f"agreement card vs CPU {agree:.6f}; gate_delta at 224² card vs CPU max|d| "
+          f"{gate_err:.3e} (bound {GATE_TOL:g}; the gated delta's max {gate_max:.4f})")
+    del atks
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # (b) full width, batch 32: each generator key on its fallbacks, then FAP
+    print(f"[19b generation] torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    launches = {}
+    cases = [(k, 224) for k in GENERATOR_KEYS] + [("ada", 299)]
+    for i, (key, size) in enumerate(cases):
+        atk = tt.load_attack_class(key)(compute_dtype="bfloat16", device="cuda")
+        x = torch.from_numpy(np.random.RandomState(191 + i).rand(GRADIENT_BATCH, size, size, 3)
+                             .astype(np.float32)).to(dev)
+        # TTP and M3D: one generator a target class, each called once
+        idxs = range(len(generation_target_classes)) if key in cli.GENERATION_TARGETED else (0,)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        deltas = [atk(x, None, idx=idx) for idx in idxs]  # cold: each generator's first call
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[f"{key}_{size}"] = fused_sign_update.launches
+        check(n == 0, f"{key}: {n} update-kernel launches, a generator key makes none")
+        forwards = atk.forwards
+        check(forwards == len(idxs), f"{key}: {forwards} generator forwards")
+        for idx, delta in zip(idxs, deltas):
+            what = f"{key} at {size}², class index {idx}"
+            check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+                  f"{what}: delta not finite or of shape {tuple(delta.shape)}")
+            linf = float(delta.abs().max())
+            check(0.0 < linf <= EPS + 1e-6, f"{what}: |delta|inf = {linf}")
+            adv = x + delta
+            check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+                  f"{what}: x + delta leaves [0, 1]")
+        check(key not in cli.GENERATION_TARGETED or not torch.equal(deltas[0], deltas[1]),
+              f"{key}: classes 0 and 1 gave one delta")
+        forward_ms = median_ms(lambda: atk(x, None, idx=0), reps=5, burst=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        padded = " (edge-padded to 227²)" if key == "ada" and size == 224 else ""
+        print(f"[19b generation] {key} at {size}²{padded}: batch {GRADIENT_BATCH}, fp32 "
+              f"generator (--bf16 ignored, as in JAX), {forwards} generator forwards over "
+              f"{len(idxs)} generator(s), {n} update-kernel "
+              f"launches, cold calls {secs:.3f} s; {forward_ms:.3f} ms a forward (CUDA events, "
+              f"warm), {GRADIENT_BATCH / forward_ms * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, "
+              f"|delta|inf*255 = {float(deltas[-1].abs().max()) * 255:.4f} on {smi}")
+        print(json.dumps({"generation_key": key, "size": size, "batch": GRADIENT_BATCH,
+                          "generators": len(idxs), "forwards": forwards, "launches": n,
+                          "cold_seconds": secs, "forward_ms": forward_ms,
+                          "img_per_s": GRADIENT_BATCH / forward_ms * 1e3, "peak_gib": peak,
+                          "reduced": []}))
+        del atk, deltas, x
+        torch.cuda.empty_cache()
+
+    atk = tt.load_attack_class("fap")(compute_dtype="bfloat16", device="cuda")
+    check(abs(atk.eps - FAP_EPS) < 1e-9 and atk.epoch == 20, f"fap: eps {atk.eps}, "
+          f"epoch {atk.epoch}")
+    x = torch.from_numpy(np.random.RandomState(199).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = atk.model.apply(x).argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    delta = atk(x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = launches["fap"] = fused_sign_update.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(n == atk.epoch == 20, f"fap: {n} update-kernel launches, expected 20")
+    check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+          f"fap: delta not finite or of shape {tuple(delta.shape)}")
+    linf = float(delta.abs().max())
+    check(0.0 < linf <= FAP_EPS + 1e-6, f"fap: |delta|inf = {linf}")
+    adv = x + delta
+    check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+          "fap: x + delta leaves [0, 1]")
+    with torch.no_grad():
+        ce0 = float(softmax_cross_entropy(atk.model.apply(x), y).mean())
+        ce1 = float(softmax_cross_entropy(atk.model.apply(adv), y).mean())
+    check(ce1 > ce0, f"fap: CE did not rise: {ce0} -> {ce1}")
+    evals = atk.grad_evals
+    t0 = time.perf_counter()  # once more, warm
+    atk(x, y)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    print(f"[19b generation] fap: {atk.model.name} bf16, batch {GRADIENT_BATCH}, 224², 20 "
+          f"iterations, zigzag mask: {evals} gradient evaluations, {n} update-kernel "
+          f"launches (eps {FAP_EPS * 255:.0f}/255, alpha {atk.alpha * 255:.1f}/255), {secs:.3f} s "
+          f"cold ({GRADIENT_BATCH / secs:.2f} img/s), {warm:.3f} s warm ({GRADIENT_BATCH / warm:.2f} "
+          f"img/s, {warm / atk.epoch * 1e3:.2f} ms a step), peak memory {peak:.2f} GiB, |delta|inf*255 = "
+          f"{linf * 255:.4f}, CE at the label {ce0:.6g} -> {ce1:.6g} on {smi}")
+    print(json.dumps({"generation_key": "fap", "model": atk.model.name, "size": 224,
+                      "batch": GRADIENT_BATCH, "grad_evals": evals, "launches": n,
+                      "seconds": secs, "img_per_s": GRADIENT_BATCH / secs,
+                      "warm_seconds": warm, "peak_gib": peak, "objective": [ce0, ce1],
+                      "reduced": []}))
+    del atk, delta, adv, x
+    torch.cuda.empty_cache()
+
+    # (c) the CLI: TTP once a target class, then eval's mean over the classes
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            data, out_dir = os.path.join(work, "data"), os.path.join(work, "ttp")
+            names, clean = write_cli_data(data, CLI_GENERATION_IMAGES)
+            common = ["--attack", "ttp", "--batchsize", str(CLI_GENERATION_IMAGES),
+                      "--input_dir", data, "--output_dir", out_dir]
+            fused_sign_update.launches = 0
+            cli.main([*common, "--model", "resnet50"])
+            launches["cli_ttp"] = fused_sign_update.launches
+            check(launches["cli_ttp"] == 0, f"ttp: the CLI launched the update kernel "
+                  f"{launches['cli_ttp']} times")
+            classes = sorted(int(c) for c in os.listdir(out_dir) if c.isdigit())
+            check(classes == sorted(generation_target_classes),
+                  f"ttp: the CLI wrote the subdirectories {classes}")
+            worst = max(check_cli_outputs(os.path.join(out_dir, str(c)), names, clean)
+                        for c in classes)
+            print(f"[19c generation] `--attack ttp --model resnet50 --batchsize "
+                  f"{CLI_GENERATION_IMAGES}` over {len(names)} PNGs: one subdirectory for each "
+                  f"of the {len(classes)} target classes, {len(names)} PNGs each, at most "
+                  f"{worst:.0f} levels from their clean images")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                cli.main([*common, "--eval", "--eval_models", "resnet50"])
+            print(text.getvalue(), end="")
+            rows = re.findall(r"^resnet50: (\d+\.\d)$", text.getvalue(), re.M)
+            check(len(rows) == 1, f"ttp: --eval printed {len(rows)} resnet50 rows")
+            table = open(os.path.join(work, "results_eval.txt")).read().splitlines()
+            check(len(table) == 1 and table[0].count("|") == 2,
+                  f"ttp: results_eval.txt holds {table}")
+            print(f"[19c generation] `--eval --eval_models resnet50`: one row, the mean over "
+                  f"the ten classes' folders: {table[0]}")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -2206,6 +2426,10 @@ def main() -> None:
 
     # 18. the rest of ensemble/ and the learned transformations
     learned_launches_ = run_learned_family(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 19. the generators, the TTP family and FAP
+    generation_launches_ = run_generation_family(dev, smi)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -2224,6 +2448,7 @@ def main() -> None:
          "launches_vit": vit_launches_,
          "launches_ensemble": ensemble_launches_,
          "launches_learned": learned_launches_,
+         "launches_generation": generation_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

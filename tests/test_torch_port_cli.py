@@ -336,7 +336,7 @@ def test_eval_bf16_model_matches_jax(cli_runs, monkeypatch):
 @pytest.mark.parametrize("flags,error", [
     (["--model_axis", "2"], NotImplementedError),
     (["--checkpoint_every", "5"], NotImplementedError),
-    (["--attack", "ttp"], ValueError),  # a generation key: not in the registry yet
+    (["--attack", "aim"], ValueError),  # a generation key: not in the registry yet
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, error):
     from transferattack_torch import main as tmain
@@ -432,6 +432,44 @@ def test_cli_runs_rfcoa_once_a_target_class(tmp_path, monkeypatch):
         assert sorted(os.listdir(out / str(c))) == names
         assert np.asarray(Image.open(out / str(c) / names[0])).shape == (64, 64, 3)
     assert json.load(open(out / "attack_meta.json"))["n_images"] == 2
+    tmain.main([*common, "--eval", "--eval_models", "toy_cnn"])
+    rows = open(tmp_path / "results_eval.txt").read().splitlines()
+    assert len(rows) == 1 and rows[0].startswith(str(out)) and rows[0].count("|") == 2
+
+
+def test_cli_runs_ttp_once_a_target_class(tmp_path, monkeypatch):
+    """``--attack ttp`` writes one subdirectory for each of the ten target
+    classes, one generator each (seeded fallbacks at 32²), every PNG within
+    16 levels of its clean image; ``--eval`` prints one row, the mean over
+    the ten classes."""
+    import functools
+
+    from transferattack_torch import main as tmain
+    from transferattack_torch.utils import generation_target_classes
+
+    monkeypatch.setattr(tmain, "AdvDataset", functools.partial(tmain.AdvDataset, size=(32, 32)))
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path / "weights"))  # seeded inits
+    monkeypatch.chdir(tmp_path)
+    data = make_fake_dataset(str(tmp_path / "data"), n=2, size=32)
+    out = tmp_path / "adv"
+    common = ["--attack", "ttp", "--batchsize", "2", "--input_dir", data,
+              "--output_dir", str(out), "--device", "cpu"]
+    tmain.main([*common, "--model", "resnet50"])
+    names = sorted(os.listdir(os.path.join(data, "images")))
+    assert sorted(p.name for p in out.iterdir() if p.is_dir()) == sorted(
+        str(c) for c in generation_target_classes)
+    clean = {n: np.round(tdata.load_image(os.path.join(data, "images", n), (32, 32)) * 255)
+             for n in names}
+    written = {}
+    for c in generation_target_classes:
+        assert sorted(os.listdir(out / str(c))) == names
+        for n in names:
+            adv = np.asarray(Image.open(out / str(c) / n)).astype(np.float64)
+            assert adv.shape == (32, 32, 3) and np.abs(adv - clean[n]).max() <= 16
+            written[c, n] = adv
+    assert not np.array_equal(written[24, names[0]], written[99, names[0]])
+    meta = json.load(open(out / "attack_meta.json"))
+    assert meta["n_images"] == 2 and "ttp_resnet50" in meta["fallback_weights_used"]
     tmain.main([*common, "--eval", "--eval_models", "toy_cnn"])
     rows = open(tmp_path / "results_eval.txt").read().splitlines()
     assert len(rows) == 1 and rows[0].startswith(str(out)) and rows[0].count("|") == 2

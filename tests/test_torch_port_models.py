@@ -47,9 +47,10 @@ def random_variables(module, size, seed=0, inputs=None):
     kernels at lecun-normal scale, small biases, and every BatchNorm moved
     off the identity (statistics and affine parameters), so BN matters.
     ``inputs``: the module's input, where it is not a (1, size, size, 3)
-    image."""
+    image, or a tuple of its inputs (ADA's generator takes an image and z)."""
     inputs = jnp.zeros((1, size, size, 3)) if inputs is None else inputs
-    shapes = flatten(jax.eval_shape(module.init, jax.random.PRNGKey(0), inputs))
+    args = inputs if isinstance(inputs, tuple) else (inputs,)
+    shapes = flatten(jax.eval_shape(module.init, jax.random.PRNGKey(0), *args))
     rng = np.random.RandomState(seed)
     flat = {}
     for k, s in sorted(shapes.items()):

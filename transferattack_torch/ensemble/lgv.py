@@ -27,15 +27,14 @@ from ..gradient.mifgsm import MIFGSM
 from ..input_transformation.dim import random_resize_pad
 from ..model_related.checkpoint_surrogates import load_checkpoint
 from ..model_related.sgm import surgery_model
-from ..models import load_npz, record_fallback
+from ..models import load_npz, record_fallback, weights_root
 from ..ops.kernels import gaussian_kernel, smooth_conv
 from ..utils.bridge import flat_to_state_dict
 
 
 def load_weight_collection(prefix: str, max_sets: int = 40):
     """The flat variables of every ``<prefix>_<i>.npz`` there is, i < ``max_sets``."""
-    root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
-    paths = [os.path.join(root, f"{prefix}_{i}.npz") for i in range(max_sets)]
+    paths = [os.path.join(weights_root(), f"{prefix}_{i}.npz") for i in range(max_sets)]
     return [load_npz(p) for p in paths if os.path.exists(p)]
 
 

@@ -11,10 +11,10 @@ plus the cognition terms (L1 and TV of the mask, minus SSIM).  The result is
 The autoencoder loads from ``$TA_TPU_WEIGHTS_DIR/rfcoa_autoencoder.npz``
 (JAX's ``params/encoder/enc_i``, ``params/decoder/dec_i`` and ``dec_out``)
 through the weights bridge, or runs on a seeded init.  The per-class robust
-features are the JAX package's vendored arrays,
-``transferattack_tpu/assets/rfcoa/<cls>.npz`` ((1, 512, 7, 7) NCHW), read
-in place with numpy; then ``$TA_TPU_WEIGHTS_DIR/rfcoa_<cls>.npz``; then
-N(0, 1) from a generator seeded ``cls``.  The Adam steps are optax's, written
+features are the JAX package's vendored arrays, in this package's own
+byte-for-byte copy ``assets/rfcoa/<cls>.npz`` ((1, 512, 7, 7) NCHW), read
+with numpy; then ``$TA_TPU_WEIGHTS_DIR/rfcoa_<cls>.npz``; then N(0, 1)
+from a generator seeded ``cls``.  The Adam steps are optax's, written
 out (:func:`~..model_related.llta.adam_step`); the update kernel is not on
 this path.
 """
@@ -30,9 +30,8 @@ from torch import nn
 
 from ..advanced_objective.cfm import jax_abs
 from ..attack import draw, softmax_cross_entropy
-from ..input_transformation.learned import nhwc
 from ..model_related.llta import adam_step
-from ..models import init_weights, load_npz, record_fallback
+from ..models import init_weights, load_npz, nhwc, record_fallback, weights_root
 from ..ops.image import scale_and_translate
 from ..utils import generation_target_classes
 from ..utils.bridge import load_flat_variables
@@ -40,8 +39,7 @@ from .ens import _MultiModelAttack
 
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M"]
-FEATURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                           "transferattack_tpu", "assets", "rfcoa")
+FEATURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "assets", "rfcoa")
 
 
 def _conv3(cin: int, cout: int) -> nn.Conv2d:
@@ -138,8 +136,7 @@ class RFCoA(_MultiModelAttack):
                          random_start=random_start, norm=norm, loss=loss,
                          attack=attack, **kwargs)
         self.encoder, self.decoder = VGGEncoder(), VGGDecoder()
-        self._feat_root = os.environ.get("TA_TPU_WEIGHTS_DIR",
-                                         os.path.join(os.getcwd(), "weights"))
+        self._feat_root = weights_root()
         path = os.path.join(self._feat_root, "rfcoa_autoencoder.npz")
         if os.path.exists(path):
             packed = load_npz(path)

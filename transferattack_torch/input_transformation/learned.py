@@ -18,7 +18,6 @@ AITL's :meth:`AITL.transform_lists` and :meth:`AITL.list_draws`, LPM's
 """
 from __future__ import annotations
 
-import os
 import warnings
 
 import numpy as np
@@ -28,36 +27,10 @@ from torch import nn
 
 from ..attack import AttackState, draw, l1_normalize, mean_over_draws, softmax_cross_entropy
 from ..gradient.mifgsm import MIFGSM
-from ..models import (IMAGENET_MEAN, IMAGENET_STD, init_weights, load_npz, make_model,
-                      record_fallback)
+from ..models import (IMAGENET_MEAN, IMAGENET_STD, aux_path, load_aux, load_npz, make_model,
+                      nhwc, record_fallback)
 from ..models.mobilenet import MobileNetV2
-from ..utils.bridge import load_flat_variables
 from .aitl_ops import apply_op, op_draws
-
-
-def aux_path(name: str):
-    """``$TA_TPU_WEIGHTS_DIR/<name>.npz`` if it exists, else None."""
-    root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
-    path = os.path.join(root, f"{name}.npz")
-    return path if os.path.exists(path) else None
-
-
-def load_aux(net: nn.Module, name: str, seed: int, device) -> nn.Module:
-    """``net`` filled from ``<name>.npz``, or warned about, recorded and
-    given a seeded init; frozen, in eval mode, on ``device``."""
-    path = aux_path(name)
-    if path is not None:
-        load_flat_variables(net, load_npz(path))
-    else:
-        record_fallback(name)
-        warnings.warn(f"{name}.npz not found; random-init aux network.")
-        init_weights(net, torch.Generator().manual_seed(seed))
-    return net.eval().requires_grad_(False).to(device)
-
-
-def nhwc(net, x, *args):
-    """``net`` (NCHW in and out) on NHWC ``x``."""
-    return net(x.permute(0, 3, 1, 2), *args).permute(0, 2, 3, 1)
 
 
 # -- ATTA -----------------------------------------------------------------

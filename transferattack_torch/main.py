@@ -33,8 +33,8 @@ from .utils import cnn_model_paper, generation_target_classes, vit_model_paper
 from .utils.data import AdvDataset, save_images
 
 # the generation attacks write one subdirectory per target class (JAX's
-# tuple, with the keys the port has)
-GENERATION_TARGETED = ("rfcoa",)
+# tuple, with the keys the port has), and eval averages over them
+GENERATION_TARGETED = ("ttp", "m3d", "rfcoa")
 
 
 def parse_fraction(s: str) -> float:

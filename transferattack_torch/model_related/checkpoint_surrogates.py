@@ -21,7 +21,7 @@ from torch import nn
 
 from ..attack import AttackState, softmax_cross_entropy
 from ..gradient.mifgsm import MIFGSM
-from ..models import init_weights, load_npz, record_fallback, tap_key
+from ..models import init_weights, load_npz, record_fallback, tap_key, weights_root
 from ..utils.bridge import load_flat_variables
 from .sgm import surgery_model
 
@@ -29,8 +29,7 @@ from .sgm import surgery_model
 def load_checkpoint(module: nn.Module, name: str, who: str, what: str) -> None:
     """Fill ``module`` from ``$TA_TPU_WEIGHTS_DIR/<name>.npz``; when it is
     absent, warn and record the fallback."""
-    root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
-    path = os.path.join(root, f"{name}.npz")
+    path = os.path.join(weights_root(), f"{name}.npz")
     if os.path.exists(path):
         load_flat_variables(module, load_npz(path))
     else:

@@ -17,7 +17,6 @@ forward stays bf16.  FPR's noise goes through the seam
 """
 from __future__ import annotations
 
-import os
 import warnings
 
 import torch
@@ -25,7 +24,7 @@ from torch import nn
 
 from ..attack import AttackState, draw, softmax_cross_entropy
 from ..gradient.mifgsm import MIFGSM
-from ..models import _weights_path, load_npz, record_fallback
+from ..models import aux_path, load_npz, record_fallback, weights_root
 from ..models.vit import ViTSurgery, with_surgery
 from ..utils.bridge import load_flat_variables
 from .vit_attacks import patchout_keep, vit_model
@@ -290,7 +289,7 @@ class SETR(MIFGSM):
         self.trm = None
         if trm:
             name = model_name if isinstance(model_name, str) else self.model.name
-            path = _weights_path(f"setr_trm_{name}")
+            path = aux_path(f"setr_trm_{name}")
             if path is not None:
                 self.trm = TRMHeads(bb.dim, self.depth - 1)
                 load_flat_variables(self.trm, load_npz(path))
@@ -298,7 +297,7 @@ class SETR(MIFGSM):
             else:
                 record_fallback(f"setr_trm_{name}")
                 warnings.warn(f"SETR: TRM checkpoint setr_trm_{name}.npz missing under "
-                              f"{os.environ.get('TA_TPU_WEIGHTS_DIR', 'weights')}; falling "
+                              f"{weights_root()}; falling "
                               "back to the trm=False self-ensemble loss.")
 
     def get_grad(self, x, y, state: AttackState, gen):

@@ -17,6 +17,7 @@ import dataclasses
 import math
 import os
 import re
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -311,10 +312,36 @@ def round_variables_to_bf16(module: nn.Module) -> None:
                 m.eps = 0.0
 
 
-def _weights_path(name: str) -> Optional[str]:
-    root = os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
-    p = os.path.join(root, f"{name}.npz")
+def weights_root() -> str:
+    """``$TA_TPU_WEIGHTS_DIR``, else ``./weights``."""
+    return os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
+
+
+def aux_path(name: str) -> Optional[str]:
+    """``<weights root>/<name>.npz`` if it exists, else None."""
+    p = os.path.join(weights_root(), f"{name}.npz")
     return p if os.path.exists(p) else None
+
+
+def load_aux(net: nn.Module, name: str, seed: int, device,
+             fallback: Optional[str] = None) -> nn.Module:
+    """``net`` filled from ``<name>.npz``, or warned about, recorded (as
+    ``fallback``, by default ``name``) and given a seeded init; frozen, in
+    eval mode, on ``device``."""
+    path = aux_path(name)
+    if path is not None:
+        load_flat_variables(net, load_npz(path))
+    else:
+        record_fallback(fallback or name)
+        warnings.warn(f"{name}.npz not found under {weights_root()}; random-init "
+                      f"{type(net).__name__} used.")
+        init_weights(net, torch.Generator().manual_seed(seed))
+    return net.eval().requires_grad_(False).to(device)
+
+
+def nhwc(net, x, *args):
+    """``net`` (NCHW in and out) on NHWC ``x``."""
+    return net(x.permute(0, 3, 1, 2), *args).permute(0, 2, 3, 1)
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -337,7 +364,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     normal of std 0.02, LayerScale's at its ``init_values`` (others zero)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                # a transposed conv's (in, out, kh, kw): out·kh·kw, as Flax's
+                # transpose_kernel counts it
                 fan_in = m.weight[0].numel()
                 # the truncated normal's std is 0.8796 of the untruncated one
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -387,7 +416,7 @@ def make_model(
         size = input_size
     backbone = builder(img_size=size, **kwargs) if sized else builder(**kwargs)
     module = WrappedModel(backbone, size, mean, std)
-    wpath = _weights_path(name) if pretrained else None
+    wpath = aux_path(name) if pretrained else None
     if wpath is not None:
         load_flat_variables(module, load_npz(wpath))
     else:

@@ -2,10 +2,11 @@
 
 The reference renders with pytorch3d; JAX wrote a z-buffer rasterizer of
 its own, and this is that rasterizer in PyTorch, batched over images.  The
-meshes are the converted reference meshes that the JAX package ships
-(``transferattack_tpu/assets/odi/*.npz``), read in place with numpy.  The
-camera is a look-at and FoV-perspective transform; rasterization walks the
-faces in chunks of 256 against every pixel, keeping per pixel the nearest
+meshes are the converted reference meshes that the JAX package ships, in
+this package's own byte-for-byte copy (``assets/odi/*.npz``), read with
+numpy.  The camera is a look-at and FoV-perspective transform;
+rasterization walks the faces in chunks of 256 against every pixel, keeping
+per pixel the nearest
 hit (a strict ``<`` across chunks, the first minimum within one, so ties
 break as in JAX); shading is Phong ambient + diffuse with a point light;
 the texture is the adversarial image inserted into the object's texture
@@ -26,8 +27,7 @@ from .image import scale_and_translate
 
 Tensor = torch.Tensor
 
-ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                         "transferattack_tpu", "assets", "odi")
+ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "assets", "odi")
 
 # the reference's model settings (``odi.py:308-318``): name → (canvas x, y,
 # w, h, base distance, base elevation, base azimuth, translation)

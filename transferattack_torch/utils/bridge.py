@@ -37,7 +37,18 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   as it is), StyleNet's ``layers_i`` → ``layers.i``, ATTA's ``conv_0``/
   ``conv_2`` → ``conv.0``/``conv.2``, AITL's ``fc1_0``/``fc1_3`` →
   ``fc1.0``/``fc1.3`` (a ``Sequential``'s Linear and BatchNorm1d, its
-  statistics too).
+  statistics too);
+* the generators of ``generation/`` (``convert.py``'s generator rewrites,
+  inverted): GeneratorResnet's ``block1_conv``/``block1_bn`` →
+  ``block1.1``/``.2`` and ``blockf_conv`` → ``blockf.1`` (a reflect pad is
+  entry 0), ``block2_conv``/``block2_bn`` → ``block2.0``/``.1`` (likewise
+  ``block3``, ``upsampl1``, ``upsampl2``), a ``resblockN``'s ``conv1``,
+  ``bn1``, ``conv2``, ``bn2`` → ``resblockN.block.1``, ``.2``, ``.6``,
+  ``.7``; AdvGAN's ``encoder_i``, ``decoder_i``, ``bottle_neck_i`` and
+  ``conv_block_i`` and ADA's ``z_encoder_i`` and ``final_i`` as indices.
+  A transposed conv's JAX kernel (kh, kw, out, in) takes the 4-D rule to
+  torch's ``ConvTranspose2d`` (in, out, kh, kw) with no flip: Flax's
+  ``transpose_kernel`` flips it itself.
 
 The port's module names are the ones the JAX converter maps (torchvision's
 and timm's; Visformer's are the JAX model's own, see its module), so a
@@ -55,7 +66,8 @@ import torch
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
-                      r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+)_(\d+)")
+                      r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+"
+                      r"|encoder|decoder|bottle_neck|conv_block|z_encoder|final)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -66,13 +78,19 @@ _PROJECTION_BN = re.compile(r"bn_(\d+)")  # MobileNetV2's last BN of a block
 # DenseNet's children of torchvision's ``features`` Sequential
 _DENSE_LAYER = re.compile(r"(denseblock\d+)_(denselayer\d+)")
 _DENSE_TOP = re.compile(r"transition\d+|conv0|norm0|norm5")
+# GeneratorResnet's named conv/BN pairs, Sequential entries from 1 where a
+# reflect pad comes first, and a residual block's children
+_GEN_PAIR = re.compile(r"(block[123f]|upsampl\d)_(conv|bn)")
+_GEN_PADDED = ("block1", "blockf")
+_RESBLOCK = re.compile(r"resblock\d+")
+_RESBLOCK_CHILD = {"conv1": "1", "bn1": "2", "conv2": "6", "bn2": "7"}
 
 
 def _module_path(path) -> list:
     parts, prev = [], ""
     for p in path:
         staged, indexed = _STAGED.fullmatch(p), _INDEXED.fullmatch(p)
-        dense = _DENSE_LAYER.fullmatch(p)
+        dense, pair = _DENSE_LAYER.fullmatch(p), _GEN_PAIR.fullmatch(p)
         if p in _RENAMED:
             parts += _RENAMED[p]
         elif staged:
@@ -86,6 +104,11 @@ def _module_path(path) -> list:
             parts += ["features", *dense.groups()]
         elif _DENSE_TOP.fullmatch(p):
             parts += ["features", p]
+        elif pair:
+            first = 1 if pair.group(1) in _GEN_PADDED else 0
+            parts += [pair.group(1), str(first + (pair.group(2) == "bn"))]
+        elif p in _RESBLOCK_CHILD and _RESBLOCK.fullmatch(prev):
+            parts += ["block", _RESBLOCK_CHILD[p]]
         elif indexed:
             parts += [indexed.group(1), indexed.group(2)]
         else:
