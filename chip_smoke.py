@@ -174,8 +174,24 @@ random weights.  Phases:
     (c) the CLI: ``--attack ttp`` on 2 PNGs writes one subdirectory a target
     class, each PNG within 16 levels of its clean image, and ``--eval``
     prints one row, the mean over the ten classes.
+20. AIM, the guided-diffusion UNet, DiffPure and DiffAttack: (a) on the card
+    against the CPU, fp32 with TF32 off, on seeded nonzero weights: the tiny
+    UNet at 32² (output and attention maps) and AIM's generator at 64²
+    within ``1e-3·max|ref|``, ``purify_sde`` and ``purify_ddpm`` with fixed
+    noises within 1e-4, DiffAttack's loss on ``toy_cnn`` at its inverted
+    latent within 1e-4 relative and its latent gradient at cosine 0.9999;
+    (b) at full width: AIM's ten class generators at 224², batch 32 (bounds,
+    0 launches, ms a forward); the ImageNet-256 UNet (553M parameters, its
+    operations counted on the meta device), built and seeded on the card,
+    under both samplers at 256², batch 4, t* 150 (150 UNet forwards each)
+    and under DiffAttack on ResNet-50 at 224², batch 1, 20 steps from 15, 30
+    iterations (945 UNet forwards): seconds a call, ms a UNet forward by CUDA
+    events, peak memory, a finite delta with x + delta in [0, 1]; (c) the
+    CLI: ``--attack aim`` writes one subdirectory a target class, and
+    ``--attack diffattack --model toy_cnn`` runs on the tiny fallback at 32².
 
-Any failed phase ends the run with a non-zero exit.  Without a card it fails
+Each phase prints its seconds (``[time]``).  Any failed phase ends the run
+with a non-zero exit.  Without a card it fails
 at once.  The last line is the JSON summary.
 """
 from __future__ import annotations
@@ -183,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -198,6 +215,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 import transferattack_torch as tt
 from transferattack_torch import bench
@@ -382,6 +400,15 @@ GEN_TOL = 1e-3   # fp32 raw output, card vs CPU: max|d| / max|cpu|
 GATE_TOL = 1e-5  # FAP's gate, card vs CPU: max|d|
 FAP_EPS = 48 / 255  # 16/255 scaled by 192/top_n at the official top_n 64
 CLI_GENERATION_IMAGES = 2
+# phase 20: AIM, the guided-diffusion UNet, DiffPure and DiffAttack
+DIFF_TOL = 1e-3     # fp32 card vs CPU: max|d| / max|cpu| (the UNet, AIM's generator)
+PURIFY_TOL = 1e-4   # fp32 card vs CPU, absolute, on images in [0, 1]
+LOSS_TOL = 1e-4     # DiffAttack's loss, card vs CPU, relative
+GRAD_COSINE = 0.9999  # DiffAttack's latent gradient, card vs CPU
+DIFFPURE_SIZE, DIFFPURE_BATCH, DIFFPURE_T_STAR = 256, 4, 150  # run_diffpure's defaults
+DIFFATTACK_KW = dict(diffusion_steps=20, start_step=15, iterations=30)  # the official ones
+DIFF_SMALL = dict(diffusion_steps=4, start_step=3)  # 20a: DiffAttack on toy_cnn at 32²
+DIFF_TWO_RES = dict(channel_mult=(1, 2, 2), attention_ds=(2, 4))  # 20a: its UNet
 
 
 def check(ok: bool, what: str) -> None:
@@ -1849,6 +1876,18 @@ def run_learned_family(dev, smi) -> dict:
     return launches
 
 
+def seeded_generator(net, gen):
+    """``init_weights`` from ``gen``, then BatchNorm's statistics off the
+    identity; in eval mode."""
+    init_weights(net, gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
+    return net.eval()
+
+
 def generators_card_vs_cpu() -> dict:
     """Each generator on seeded weights (BatchNorm off the identity), fp32,
     on the card and on the CPU at 64² (AdvGAN also at 65², its crop path;
@@ -1862,13 +1901,7 @@ def generators_card_vs_cpu() -> dict:
                             ("AdvGANGenerator", tgen.AdvGANGenerator(), 64),
                             ("AdvGANGenerator", tgen.AdvGANGenerator(), 65),
                             ("ADAGenerator", tgen.ADAGenerator(), 67)):
-        init_weights(net, gen)
-        with torch.no_grad():
-            for m in net.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gen))
-                    m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
-        net.eval()
+        seeded_generator(net, gen)
         args = (torch.rand(2, 3, size, size, generator=gen),) + (
             (torch.randn(2, 16, generator=gen),) if name == "ADAGenerator" else ())
         with torch.no_grad():
@@ -2048,6 +2081,320 @@ def run_generation_family(dev, smi) -> dict:
     return launches
 
 
+def diffusion_card_vs_cpu() -> dict:
+    """20a, fp32 with TF32 off, the same seeded weights on both: {check:
+    (value, bound)}."""
+    from transferattack_torch.defense import diffpure as tdp
+    from transferattack_torch.defense.gd_unet import GuidedDiffusionUNet, init_nonzero
+    from transferattack_torch.generation.aim import AIMGenerator
+
+    out = {}
+    gen = torch.Generator().manual_seed(200)
+    unet = init_nonzero(GuidedDiffusionUNet(**tdp._TINY_UNET), gen).requires_grad_(False)
+    x = torch.randn(2, 3, 32, 32, generator=gen)
+    t = torch.tensor([7.0, 640.0])
+    with torch.no_grad():
+        cpu_maps, card_maps = [], []
+        ref = unet(x, t, cpu_maps)
+        card_unet = copy.deepcopy(unet).to("cuda", memory_format=torch.channels_last)
+        card = card_unet(x.cuda().contiguous(memory_format=torch.channels_last), t.cuda(),
+                         card_maps)
+    out["tiny UNet at 32², output"] = (rel_err(card.cpu(), ref), DIFF_TOL)
+    out["tiny UNet at 32², attention maps"] = (
+        max(rel_err(c.cpu(), r) for c, r in zip(card_maps, cpu_maps)), DIFF_TOL)
+
+    aim = seeded_generator(AIMGenerator(), gen)
+    with torch.no_grad():
+        xa, guide = torch.rand(2, 3, 64, 64, generator=gen), torch.rand(1, 3, 64, 64, generator=gen)
+        ref = aim(xa, guide)
+        card = copy.deepcopy(aim).cuda()(xa.cuda(), guide.cuda()).cpu()
+    out["AIM generator at 64², raw output"] = (rel_err(card, ref), DIFF_TOL)
+
+    rng = np.random.RandomState(200)
+    xs = rng.rand(2, 32, 32, 3).astype(np.float32)
+    for kind, t_star in (("sde", 4), ("ddpm", 5)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            dps = {w: tdp.DiffPure(t_star=t_star, diffusion_type=kind, device=w)
+                   for w in ("cpu", "cuda")}
+        n = len(dps["cpu"].time_grid()[0]) if kind == "sde" else t_star
+        noises = [rng.randn(*xs.shape).astype(np.float32) for _ in range(n + 1)]
+        pure = {}
+        for w, dp in dps.items():
+            dp.unet.load_state_dict(unet.state_dict())
+            pure[w] = dp(xs, noises=noises).cpu()
+        out[f"purify_{kind}, t* {t_star}, fixed noises"] = (
+            float((pure["cuda"] - pure["cpu"]).abs().max()), PURIFY_TOL)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        atks = {w: tt.load_attack_class("diffattack")(model_name="toy_cnn", device=w,
+                                                      **DIFF_SMALL) for w in ("cpu", "cuda")}
+    # a UNet attending at 16² and 8² tokens, so the self-attention term's
+    # ``keep`` is a strict subset of the maps, as at full width
+    unet2 = init_nonzero(GuidedDiffusionUNet(**{**tdp._TINY_UNET, **DIFF_TWO_RES}),
+                         gen).requires_grad_(False)
+    y = torch.tensor([3, 7])
+    far = torch.randn(xs.shape, generator=gen)
+    found, keeps = {}, {}  # (part, device): (value, latent gradient)
+    for w, atk in atks.items():
+        atk.dp.unet = copy.deepcopy(unet2).to(w, memory_format=torch.channels_last)
+        x = torch.from_numpy(xs).to(w)
+        with torch.no_grad():
+            latent0 = atk.invert(x * 2.0 - 1.0)
+            base = atk.decode(latent0, with_maps=True)[1]
+        keeps[w] = keep = atk.attn_keep(base)
+        latent = latent0.clone().requires_grad_(True)
+        loss = atk.loss(latent, x, y.to(w), base, keep)
+        found["loss", w] = loss.item(), torch.autograd.grad(loss, latent)[0]
+        # the self-attention term alone, at a latent away from the clean one
+        latent = (latent0 + 0.5 * far.to(w)).requires_grad_(True)
+        term = atk.self_attn(atk.decode(latent, with_maps=True)[1], base, keep)
+        found["term", w] = term.item(), torch.autograd.grad(term, latent)[0]
+    check(keeps["cuda"] == keeps["cpu"] == [1, 2, 3, 4],
+          f"DiffAttack: the maps kept, {keeps['cuda']} on the card and {keeps['cpu']} on the CPU")
+    for part, what in (("loss", "loss at the inverted latent"),
+                       ("term", "self-attention term over the 4 kept of 7 maps, off the clean "
+                        "latent")):
+        (v, g), (ref, r) = found[part, "cuda"], found[part, "cpu"]
+        g, r = g.cpu().double().flatten(), r.cpu().double().flatten()
+        out[f"DiffAttack on toy_cnn, {what}"] = (abs(v - ref) / abs(ref), LOSS_TOL)
+        out[f"DiffAttack on toy_cnn, {what}, 1 - cosine of the latent gradients"] = (
+            1 - float(g @ r / (g.norm() * r.norm())), 1 - GRAD_COSINE)
+    return out
+
+
+def run_diffusion_family(dev, smi) -> dict:
+    """Phase 20; returns each call's update-kernel launches (none)."""
+    from transferattack_torch.defense.diffpure import DiffPure
+    from transferattack_torch.defense.gd_unet import GuidedDiffusionUNet, init_nonzero
+
+    check(all(k in tt.attack_zoo for k in ("aim", "diffattack")) and len(tt.attack_zoo) == 127,
+          "aim or diffattack is not registered")
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for what, (value, bound) in diffusion_card_vs_cpu().items():
+        check(value <= bound, f"{what}: card vs CPU {value} (bound {bound})")
+        print(f"[20a diffusion] {what}, seeded, fp32: card vs CPU {value:.3e} (bound {bound:g})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # (b) full width: AIM's ten class generators, then the full UNet under
+    # DiffPure's two samplers and DiffAttack
+    print(f"[20b diffusion] torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    launches = {}
+    atk = tt.load_attack_class("aim")(compute_dtype="bfloat16", device="cuda")
+    x = torch.from_numpy(np.random.RandomState(201).rand(GRADIENT_BATCH, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    idxs = range(len(generation_target_classes))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    deltas = [atk(x, None, idx=idx) for idx in idxs]  # cold: each generator's first call
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = launches["aim"] = fused_sign_update.launches
+    check(n == 0 and atk.forwards == len(idxs), f"aim: {n} update-kernel launches, "
+          f"{atk.forwards} generator forwards")
+    for idx, delta in zip(idxs, deltas):
+        check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape)
+              and 0.0 < float(delta.abs().max()) <= EPS + 1e-6,
+              f"aim, class index {idx}: delta not finite, of shape {tuple(delta.shape)} or "
+              f"beyond eps")
+        adv = x + delta
+        check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+              f"aim, class index {idx}: x + delta leaves [0, 1]")
+    check(not torch.equal(deltas[0], deltas[1]), "aim: classes 0 and 1 gave one delta")
+    forward_ms = median_ms(lambda: atk(x, None, idx=0), reps=5, burst=2, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[20b diffusion] aim at 224²: batch {GRADIENT_BATCH}, fp32 generators (--bf16 "
+          f"ignored, as in JAX), {len(idxs)} generator forwards over {len(idxs)} class "
+          f"generators, {n} update-kernel launches, cold calls {secs:.3f} s; {forward_ms:.3f} "
+          f"ms a forward (CUDA events, warm), {GRADIENT_BATCH / forward_ms * 1e3:.2f} img/s, "
+          f"peak memory {peak:.2f} GiB on {smi}")
+    print(json.dumps({"diffusion_key": "aim", "size": 224, "batch": GRADIENT_BATCH,
+                      "generators": len(idxs), "forwards": len(idxs), "launches": n,
+                      "cold_seconds": secs, "forward_ms": forward_ms,
+                      "img_per_s": GRADIENT_BATCH / forward_ms * 1e3, "peak_gib": peak,
+                      "reduced": []}))
+    del atk, deltas, x, adv
+    torch.cuda.empty_cache()
+
+    # the ImageNet-256 configuration (JAX's ``unet_config={}``), built and
+    # seeded on the card: a host init of 553M parameters takes a minute
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        unet = GuidedDiffusionUNet()
+    init_nonzero(unet, torch.Generator(device=dev).manual_seed(202)).requires_grad_(False)
+    unet = unet.to(memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in unet.parameters())
+    print(f"[20b diffusion] GuidedDiffusionUNet(), the ImageNet-256 configuration: "
+          f"{params / 1e6:.1f}M parameters, built and seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    flops = {}  # a forward's operations an image, counted on the meta device
+    with torch.device("meta"):
+        shape = GuidedDiffusionUNet()
+        for side in (DIFFPURE_SIZE, 224):
+            with FlopCounterMode(display=False) as counter:
+                shape(torch.empty(1, 3, side, side), torch.zeros(1))
+            flops[side] = counter.get_total_flops()
+    del shape
+    print(f"[20b diffusion] a UNet forward: {flops[DIFFPURE_SIZE] / 1e12:.4f} TFLOP an image at "
+          f"{DIFFPURE_SIZE}², {flops[224] / 1e12:.4f} at 224² (torch.utils.flop_counter)")
+
+    def unet_ms(batch, side):
+        xt = torch.randn(batch, 3, side, side, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        tt_ = torch.full((batch,), 100.0, device=dev)
+        with torch.no_grad():
+            return median_ms(lambda: unet(xt, tt_), reps=5, burst=2, warmup=1)
+
+    x = torch.from_numpy(np.random.RandomState(203).rand(
+        DIFFPURE_BATCH, DIFFPURE_SIZE, DIFFPURE_SIZE, 3).astype(np.float32)).to(dev)
+    fwd_ms = unet_ms(DIFFPURE_BATCH, DIFFPURE_SIZE)
+    for kind in ("sde", "ddpm"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the tiny fallback, replaced at once
+            dp = DiffPure(t_star=DIFFPURE_T_STAR, diffusion_type=kind, device=dev)
+        dp.unet = unet
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        out = dp(x, torch.Generator(device=dev).manual_seed(204))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[f"diffpure_{kind}"] = fused_sign_update.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(n == 0 and dp.forwards == DIFFPURE_T_STAR,
+              f"diffpure {kind}: {dp.forwards} UNet forwards, {n} update-kernel launches")
+        check(bool(torch.isfinite(out).all()) and tuple(out.shape) == tuple(x.shape)
+              and float(out.min()) >= 0 and float(out.max()) <= 1,
+              f"diffpure {kind}: output not finite, of shape {tuple(out.shape)} or out of [0, 1]")
+        moved = float((out - x).abs().mean())
+        check(moved > 0, f"diffpure {kind}: the purification changed nothing")
+        print(f"[20b diffusion] purify_{kind}: full UNet, batch {DIFFPURE_BATCH}, "
+              f"{DIFFPURE_SIZE}², t* {DIFFPURE_T_STAR}: {dp.forwards} UNet forwards, {n} "
+              f"update-kernel launches, {secs:.3f} s a call ({DIFFPURE_BATCH / secs:.2f} img/s), "
+              f"{fwd_ms:.3f} ms a UNet forward (CUDA events, warm; "
+              f"{DIFFPURE_BATCH * flops[DIFFPURE_SIZE] / fwd_ms / 1e9:.1f} TFLOP/s), peak memory "
+              f"{peak:.2f} GiB, mean |out - x| {moved:.4f} on {smi}")
+        print(json.dumps({"diffusion_key": f"diffpure_{kind}", "size": DIFFPURE_SIZE,
+                          "batch": DIFFPURE_BATCH, "t_star": DIFFPURE_T_STAR,
+                          "unet_forwards": dp.forwards, "launches": n, "seconds": secs,
+                          "forward_ms": fwd_ms, "img_per_s": DIFFPURE_BATCH / secs,
+                          "peak_gib": peak, "reduced": []}))
+        del dp, out
+    del x
+    torch.cuda.empty_cache()
+
+    atk = tt.load_attack_class("diffattack")(model_name="resnet50", compute_dtype="bfloat16",
+                                             device="cuda", **DIFFATTACK_KW)
+    atk.dp.unet = unet
+    x = torch.from_numpy(np.random.RandomState(205).rand(1, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = atk.surrogate.apply(x).argmax(-1)
+    fwd_ms = unet_ms(1, 224)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    delta = atk(x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = launches["diffattack"] = fused_sign_update.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps, its = DIFFATTACK_KW["start_step"], DIFFATTACK_KW["iterations"]
+    # inversion, the clean maps, each step's decode and its recomputation in
+    # the backward, the last decode
+    expected = steps + steps + its * 2 * steps + steps
+    check(n == 0 and atk.dp.forwards == expected,
+          f"diffattack: {atk.dp.forwards} UNet forwards (expected {expected}), {n} launches")
+    check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+          f"diffattack: delta not finite or of shape {tuple(delta.shape)}")
+    adv = x + delta
+    check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+          "diffattack: x + delta leaves [0, 1]")
+    loss0, loss1 = atk.losses
+    check(loss1 < loss0, f"diffattack: the loss went from {loss0} at the first iteration to "
+          f"{loss1} at the last")
+    with torch.no_grad():
+        ce0 = float(softmax_cross_entropy(atk.surrogate.apply(x), y).mean())
+        ce1 = float(softmax_cross_entropy(atk.surrogate.apply(adv), y).mean())
+    print(f"[20b diffusion] diffattack: resnet50 fp32 (--bf16 ignored, as in JAX), full UNet, "
+          f"batch 1, 224², {steps} of {DIFFATTACK_KW['diffusion_steps']} DDIM steps, {its} "
+          f"AdamW iterations: {atk.dp.forwards} UNet forwards, {n} update-kernel launches, "
+          f"{secs:.3f} s a call, {fwd_ms:.3f} ms a UNet forward (CUDA events, warm; "
+          f"{flops[224] / fwd_ms / 1e9:.1f} TFLOP/s), peak "
+          f"memory {peak:.2f} GiB, |delta|inf*255 = {float(delta.abs().max()) * 255:.2f}, loss "
+          f"{loss0:.6g} at the first iteration -> {loss1:.6g} at the last, CE at the label "
+          f"{ce0:.6g} -> {ce1:.6g} on {smi}")
+    print(json.dumps({"diffusion_key": "diffattack", "model": "resnet50", "size": 224,
+                      "batch": 1, **DIFFATTACK_KW, "unet_forwards": atk.dp.forwards,
+                      "launches": n, "seconds": secs, "forward_ms": fwd_ms, "peak_gib": peak,
+                      "objective": [loss0, loss1], "ce": [ce0, ce1], "reduced": []}))
+    del atk, unet, delta, adv, x
+    torch.cuda.empty_cache()
+
+    # (c) the CLI: AIM once a target class; DiffAttack on the tiny fallback
+    # at 32² (at 224² its attention at 112² tokens is out of any card's reach)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            data = os.path.join(work, "data")
+            names, clean = write_cli_data(data, CLI_GENERATION_IMAGES)
+            common = ["--batchsize", str(CLI_GENERATION_IMAGES), "--input_dir", data]
+            out_dir = os.path.join(work, "aim")
+            fused_sign_update.launches = 0
+            cli.main(["--attack", "aim", *common, "--output_dir", out_dir])
+            n = launches["cli_aim"] = fused_sign_update.launches
+            check(n == 0, f"aim: the CLI launched the update kernel {n} times")
+            classes = sorted(int(c) for c in os.listdir(out_dir) if c.isdigit())
+            check(classes == sorted(generation_target_classes),
+                  f"aim: the CLI wrote the subdirectories {classes}")
+            worst = max(check_cli_outputs(os.path.join(out_dir, str(c)), names, clean)
+                        for c in classes)
+            print(f"[20c diffusion] `--attack aim --batchsize {CLI_GENERATION_IMAGES}` over "
+                  f"{len(names)} PNGs: one subdirectory for each of the {len(classes)} target "
+                  f"classes, {len(names)} PNGs each, at most {worst:.0f} levels from their "
+                  f"clean images")
+            out_dir = os.path.join(work, "diffattack")
+            with open(os.path.join(data, "labels.csv")) as f:
+                header, *rows = f.read().splitlines()
+            with open(os.path.join(data, "labels.csv"), "w") as f:  # toy_cnn has ten classes
+                f.write(header + "\n" + "".join(f"{m},{(int(c) - 1) % 10 + 1}\n"
+                                                for m, c in (r.split(",") for r in rows)))
+            dataset = cli.AdvDataset
+            cli.AdvDataset = functools.partial(dataset, size=(32, 32))
+            try:
+                fused_sign_update.launches = 0
+                t0 = time.perf_counter()
+                cli.main(["--attack", "diffattack", "--model", "toy_cnn", *common,
+                          "--output_dir", out_dir])
+                secs = time.perf_counter() - t0
+            finally:
+                cli.AdvDataset = dataset
+            n = launches["cli_diffattack"] = fused_sign_update.launches
+            check(n == 0, f"diffattack: the CLI launched the update kernel {n} times")
+            written = sorted(m for m in os.listdir(out_dir) if m.endswith(".png"))
+            check(written == names, f"diffattack: the CLI wrote {written}")
+            imgs = [load_image(os.path.join(out_dir, m), (32, 32)) for m in names]
+            check(all(np.isfinite(i).all() for i in imgs), "diffattack: a PNG is not finite")
+            print(f"[20c diffusion] `--attack diffattack --model toy_cnn` over {len(names)} "
+                  f"PNGs at 32² (the tiny fallback UNet, official steps and iterations): "
+                  f"{len(written)} PNGs in {secs:.2f} s")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -2083,10 +2430,19 @@ def run_cli(work: str):
     return launches
 
 
+def phase_seconds(n: int, clock: list) -> None:
+    """Print phase ``n``'s seconds and the script's so far."""
+    now = time.perf_counter()
+    print(f"[time] phase {n}: {now - clock[-1]:.1f} s; {now - clock[0]:.1f} s since phase 1")
+    clock.append(now)
+
+
 def main() -> None:
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is False: this script runs on a CUDA card")
     dev = torch.device("cuda", 0)
+
+    clock = [time.perf_counter()]  # each phase's seconds, for the time budget
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -2094,6 +2450,7 @@ def main() -> None:
     print(f"[1 device] torch.cuda.get_device_name(0): {name}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
+    phase_seconds(1, clock)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2103,6 +2460,7 @@ def main() -> None:
         _build.load_library(src)
     built = ", ".join(str(_build.library_path(s).relative_to(REPO)) for s in KERNEL_SOURCES)
     print(f"[2 build] {built} built and loaded in {time.perf_counter() - t0:.2f} s")
+    phase_seconds(2, clock)
 
     # 3. kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2125,6 +2483,7 @@ def main() -> None:
           f"{kernel_ms:.4f} ms ({4 * nbytes(d) / kernel_ms / 1e9:.1f} TB/s of 16 B/element), "
           f"plain {plain_ms:.4f} ms, bound {update_bound:.4f} ms")
     del d, m, x
+    phase_seconds(3, clock)
 
     # 4. fp32 slice: the card against the CPU
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -2143,6 +2502,7 @@ def main() -> None:
     print(f"[4 fp32] ResNet-50 MI-FGSM, 2 x 224², 3 iterations: delta sign "
           f"agreement card vs CPU {agree:.6f}")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    phase_seconds(4, clock)
 
     # 5. main path
     attack = tt.load_attack_class("mifgsm")(model_name="resnet50",
@@ -2184,6 +2544,7 @@ def main() -> None:
           f"(calls {', '.join(f'{t:.4f}' for t in times)} s) on {smi}")
     del attack, x, y, delta, adv, logits0, logits1
     torch.cuda.empty_cache()
+    phase_seconds(5, clock)
 
     # 6. kernels 2-3 against their plain versions, bf16
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2283,6 +2644,7 @@ def main() -> None:
     # the 3x3 row: stage 1 as its headline
     row_3x3 = {k: cases_3x3[0][k] for k in
                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    phase_seconds(6, clock)
 
     # 7. the chain (kernel 4) on a BN-folded Bottleneck, the shape of layer1.1
     blk = Bottleneck(256, 64)
@@ -2345,7 +2707,7 @@ def main() -> None:
     print(f"[7 chain] kernels {chain['ms']:.4f} ms, plain {chain['plain_ms']:.4f} ms, "
           f"bound {chain['bound_ms']:.4f} ms ({chain['bound_by']}; inputs and output "
           f"once), floor of the JAX bench's byte count {jax_floor:.4f} ms, on {smi}")
-
+    phase_seconds(7, clock)
 
     # 8. the eval models at full width: the card and the CPU in fp32, each
     # against the same model in fp64 on the CPU.  A random init can be ill
@@ -2376,6 +2738,7 @@ def main() -> None:
         del ref_model, exact, on_card
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.empty_cache()
+    phase_seconds(8, clock)
 
     # 9. the CLI, attack then eval, in a working directory of its own
     cwd = os.getcwd()
@@ -2391,45 +2754,61 @@ def main() -> None:
           f"to 224² {png_ms['filter0_load_image_ms']:.2f} ms; Paeth-filtered (the sweep "
           f"PIL's filtered files take) {png_ms['paeth_decode_ms']:.2f} ms, with the resize "
           f"{png_ms['paeth_load_image_ms']:.2f} ms")
+    phase_seconds(9, clock)
 
     # 10. the bench line
     print("[10 bench] ", end="")
     bench.main([])
+    phase_seconds(10, clock)
 
     # 11. the gradient family
     gradient_launches = run_gradient_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(11, clock)
 
     # 12. the input-transformation keys, ANDA and MUMODIG
     input_launches = run_input_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(12, clock)
 
     # 13. the feature-tap API and the advanced-objective keys
     objective_launches_ = run_objective_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(13, clock)
 
     # 14. the ResNet gradient surgery and the CNN keys of model_related
     model_related_launches_ = run_model_related_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(14, clock)
 
     # 15. the ViT surgery and the ViT keys of model_related
     vit_launches_ = run_vit_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(15, clock)
 
     # 16. IDAA, Everywhere and ODI
     input_launches.update(run_idaa_family(dev, smi))
     torch.cuda.empty_cache()
+    phase_seconds(16, clock)
 
     # 17. the ensemble surrogate, DenseNet and the ensemble keys
     ensemble_launches_ = run_ensemble_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(17, clock)
 
     # 18. the rest of ensemble/ and the learned transformations
     learned_launches_ = run_learned_family(dev, smi)
     torch.cuda.empty_cache()
+    phase_seconds(18, clock)
 
     # 19. the generators, the TTP family and FAP
     generation_launches_ = run_generation_family(dev, smi)
+    torch.cuda.empty_cache()
+    phase_seconds(19, clock)
+
+    # 20. AIM, the guided-diffusion UNet, DiffPure and DiffAttack
+    diffusion_launches_ = run_diffusion_family(dev, smi)
+    phase_seconds(20, clock)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -2437,6 +2816,7 @@ def main() -> None:
     row_1x1["bound_ms"], row_1x1["bound_by"] = bound_ms(
         sum(c["bytes"] for c in in_chain), sum(c["flops"] for c in in_chain))
     row_1x1["library"] = "torch.matmul(g, wt): reads neither mask nor skip, not the same function"
+
     print(json.dumps({"kernels": [
         {"name": "fused_sign_update", "route": "cuda",
          "source": "transferattack_torch/ops/csrc/fused_update.cu",
@@ -2449,6 +2829,7 @@ def main() -> None:
          "launches_ensemble": ensemble_launches_,
          "launches_learned": learned_launches_,
          "launches_generation": generation_launches_,
+         "launches_diffusion": diffusion_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

@@ -336,11 +336,15 @@ def test_eval_bf16_model_matches_jax(cli_runs, monkeypatch):
 @pytest.mark.parametrize("flags,error", [
     (["--model_axis", "2"], NotImplementedError),
     (["--checkpoint_every", "5"], NotImplementedError),
-    (["--attack", "aim"], ValueError),  # a generation key: not in the registry yet
+    (["--attack", "no_such_attack"], ValueError),  # every registry key is ported
+    (["--attack", "diffattack"], NotImplementedError),  # the SD backend its weights ask for
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, flags, error):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, error):
     from transferattack_torch import main as tmain
 
+    monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path))
+    for tag in ("sd_unet", "sd_vae", "sd_text"):  # converted Stable Diffusion weights
+        np.savez(tmp_path / f"{tag}.npz", w=np.zeros(1))
     with pytest.raises(error):
         tmain.main(["--model", "toy_cnn", "--device", "cpu", "--input_dir",
                     str(tmp_path), "--output_dir", str(tmp_path / "out"), *flags])

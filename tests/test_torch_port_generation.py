@@ -267,8 +267,8 @@ GENERATION_KEYS = ["cdtp", "ltp", "ada", "ge_advgan", "dsva", "fap", "ttp", "m3d
 def test_generation_keys_are_registered_and_need_the_cpu_asked_for(monkeypatch):
     assert {k: tt.attack_zoo[k] for k in GENERATION_KEYS} == {
         k: ta.attack_zoo[k] for k in GENERATION_KEYS}
-    assert len(tt.attack_zoo) == 125
-    assert set(ta.attack_zoo) - set(tt.attack_zoo) == {"aim", "diffattack"}
+    assert len(tt.attack_zoo) == 127
+    assert set(ta.attack_zoo) - set(tt.attack_zoo) == set()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for k in GENERATION_KEYS:
         kw = {"model_name": "toy_cnn"} if k == "fap" else {}
@@ -371,9 +371,10 @@ def test_asset_copy_is_byte_equal(kind, name):
 
 def test_port_reads_only_its_own_assets():
     from transferattack_torch.ensemble import rfcoa
+    from transferattack_torch.generation import aim
     from transferattack_torch.ops import render3d
 
-    for d in (render3d.ASSET_DIR, rfcoa.FEATURE_DIR):
+    for d in (render3d.ASSET_DIR, rfcoa.FEATURE_DIR, aim.GUIDES):
         assert os.path.realpath(d).startswith(os.path.join(REPO, "transferattack_torch", ""))
     assert sorted(os.listdir(os.path.join(REPO, "transferattack_torch", "assets"))) == [
-        "odi", "rfcoa"]
+        "aim", "odi", "rfcoa"]

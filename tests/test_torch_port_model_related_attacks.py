@@ -427,7 +427,7 @@ def test_llta_agrees_with_jax_given_its_draws(weights):
 def test_every_model_related_cnn_key_is_registered():
     keys = {"sgm", "linbp", "iaa", "bpa", "ghost", "dhf", "mup", "awt", "faug", "dra", "mta",
             "dsm", "ags", "ma", "ana", "qaa", "metassa", "llta"}
-    assert keys <= set(tt.attack_zoo) and len(tt.attack_zoo) == 125
+    assert keys <= set(tt.attack_zoo) and len(tt.attack_zoo) == 127
     assert {k: tt.attack_zoo[k] for k in keys} == {k: ta.attack_zoo[k] for k in keys}
 
 

@@ -439,7 +439,7 @@ def test_tgr_against_the_reference_twin():
 def test_every_vit_key_is_registered_and_builds_on_the_cpu(narrow):
     keys = {"tgr", "pna_patchout", "sapr", "fdap", "vdc", "fpr", "att", "setr", "ll2s",
             "ata_vit"}
-    assert keys <= set(tt.attack_zoo) and len(tt.attack_zoo) == 125
+    assert keys <= set(tt.attack_zoo) and len(tt.attack_zoo) == 127
     assert {k: tt.attack_zoo[k] for k in keys} == {k: ta.attack_zoo[k] for k in keys}
     for k in sorted(keys):
         with warnings.catch_warnings():

@@ -54,12 +54,14 @@ class GeneratorResnet(nn.Module):
     """The TTP/M3D/CDTP/LTP/DSVA generator (``cdtp.py:23-108``): a 7×7 stem,
     two stride-2 convs to 256 channels, six residual blocks, two
     transposed-conv upsamples, a 7×7 conv with bias, ``(tanh + 1) / 2``: an
-    image in [0, 1]."""
+    image in [0, 1].  ``in_channels``: the stem's input channels (AIM feeds
+    the image and its guide, 6)."""
 
-    def __init__(self, inception: bool = False):
+    def __init__(self, inception: bool = False, in_channels: int = 3):
         super().__init__()
         self.inception = inception
-        self.block1 = nn.Sequential(nn.ReflectionPad2d(3), nn.Conv2d(3, NGF, 7, bias=False),
+        self.block1 = nn.Sequential(nn.ReflectionPad2d(3),
+                                    nn.Conv2d(in_channels, NGF, 7, bias=False),
                                     nn.BatchNorm2d(NGF), nn.ReLU())
         self.block2 = _down(NGF, NGF * 2)
         self.block3 = _down(NGF * 2, NGF * 4)

@@ -50,6 +50,7 @@ class GenerativeAttack:
     smooth = False
     generator_cls = GeneratorResnet
     requires_batchsize: Optional[int] = None
+    fallback_name: Optional[str] = None  # what a missing checkpoint is recorded as
 
     def __init__(self, model_name="resnet50", eps=16 / 255, targeted=False, seed=0,
                  attack=None, device="cuda", **kwargs):
@@ -75,7 +76,7 @@ class GenerativeAttack:
         key, name, seed = self.checkpoint(idx)
         if key not in self._generators:
             net = load_aux(self.generator_cls(), name, seed, self.device,
-                           fallback=self.ckpt_prefix)
+                           fallback=self.fallback_name or self.ckpt_prefix)
             self._generators[key] = net.to(memory_format=torch.channels_last)
         return self._generators[key]
 

@@ -32,9 +32,11 @@ from .models import (fallback_weights_used, make_model, resolve_device,
 from .utils import cnn_model_paper, generation_target_classes, vit_model_paper
 from .utils.data import AdvDataset, save_images
 
-# the generation attacks write one subdirectory per target class (JAX's
-# tuple, with the keys the port has), and eval averages over them
-GENERATION_TARGETED = ("ttp", "m3d", "rfcoa")
+# the generation attacks that write one subdirectory per target class, and
+# those whose eval averages over them: JAX's two tuples (its eval leaves out
+# AIM and reads the top folder, which holds no PNGs)
+GENERATION_TARGETED = ("ttp", "m3d", "rfcoa", "aim")
+GENERATION_EVAL = ("ttp", "m3d", "rfcoa")
 
 
 def parse_fraction(s: str) -> float:
@@ -228,7 +230,7 @@ def run_eval(args) -> None:
         surrogate = make_model(name, device=device)
         if args.bf16:
             round_variables_to_bf16(surrogate.module)
-        if args.attack in GENERATION_TARGETED:
+        if args.attack in GENERATION_EVAL:
             asr = 0.0
             for target_class in generation_target_classes:
                 ds = AdvDataset(input_dir=args.input_dir,

@@ -359,12 +359,12 @@ _NORMAL_002 = ("pos_embed", "pos_embed1", "pos_embed2", "pos_embed3",
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init at Flax's default scales: lecun-normal (truncated
-    at two standard deviations) kernels, zero biases, identity BatchNorm
-    and LayerNorm, the free parameters of ``_NORMAL_002`` drawn from a
+    at two standard deviations) kernels, zero biases, identity BatchNorm,
+    LayerNorm and GroupNorm, the free parameters of ``_NORMAL_002`` drawn from a
     normal of std 0.02, LayerScale's at its ``init_values`` (others zero)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 # a transposed conv's (in, out, kh, kw): out·kh·kw, as Flax's
                 # transpose_kernel counts it
                 fan_in = m.weight[0].numel()
@@ -374,7 +374,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
                 m.reset_parameters()
             else:
                 for pname, p in m.named_parameters(recurse=False):

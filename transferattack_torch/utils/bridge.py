@@ -48,7 +48,12 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   ``conv_block_i`` and ADA's ``z_encoder_i`` and ``final_i`` as indices.
   A transposed conv's JAX kernel (kh, kw, out, in) takes the 4-D rule to
   torch's ``ConvTranspose2d`` (in, out, kh, kw) with no flip: Flax's
-  ``transpose_kernel`` flips it itself.
+  ``transpose_kernel`` flips it itself;
+* the guided-diffusion UNet (``defense/gd_unet.py``): ``input_blocks_N_M``
+  and ``output_blocks_N_M`` → ``input_blocks.N.M``, and ``middle_block``,
+  ``time_embed``, ``out``, ``in_layers``, ``emb_layers``, ``out_layers``
+  as indices; an attention block's ``qkv`` and ``proj_out`` Dense kernels
+  (I, O) become the reference's ``Conv1d`` weights (O, I, 1).
 
 The port's module names are the ones the JAX converter maps (torchvision's
 and timm's; Visformer's are the JAX model's own, see its module), so a
@@ -67,7 +72,8 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
                       r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+"
-                      r"|encoder|decoder|bottle_neck|conv_block|z_encoder|final)_(\d+)")
+                      r"|encoder|decoder|bottle_neck|conv_block|z_encoder|final"
+                      r"|time_embed|middle_block|in_layers|emb_layers|out_layers|out)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -84,6 +90,9 @@ _GEN_PAIR = re.compile(r"(block[123f]|upsampl\d)_(conv|bn)")
 _GEN_PADDED = ("block1", "blockf")
 _RESBLOCK = re.compile(r"resblock\d+")
 _RESBLOCK_CHILD = {"conv1": "1", "bn1": "2", "conv2": "6", "bn2": "7"}
+# the guided-diffusion UNet's blocks: ``input_blocks_4_1`` → ``input_blocks.4.1``
+_UNET_BLOCK = re.compile(r"(input_blocks|output_blocks)_(\d+)_(\d+)")
+_UNET_CONV1D = re.compile(r"(input_blocks|output_blocks)_\d+_\d+|middle_block_\d+")
 
 
 def _module_path(path) -> list:
@@ -91,6 +100,7 @@ def _module_path(path) -> list:
     for p in path:
         staged, indexed = _STAGED.fullmatch(p), _INDEXED.fullmatch(p)
         dense, pair = _DENSE_LAYER.fullmatch(p), _GEN_PAIR.fullmatch(p)
+        unet = _UNET_BLOCK.fullmatch(p)
         if p in _RENAMED:
             parts += _RENAMED[p]
         elif staged:
@@ -109,6 +119,8 @@ def _module_path(path) -> list:
             parts += [pair.group(1), str(first + (pair.group(2) == "bn"))]
         elif p in _RESBLOCK_CHILD and _RESBLOCK.fullmatch(prev):
             parts += ["block", _RESBLOCK_CHILD[p]]
+        elif unet:
+            parts += list(unet.groups())
         elif indexed:
             parts += [indexed.group(1), indexed.group(2)]
         else:
@@ -136,6 +148,9 @@ def torch_layout(jax_key: str, value: np.ndarray) -> np.ndarray:
     if leaf == "kernel":
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if value.ndim == 2 and len(path) >= 2 and path[-1] in ("qkv", "proj_out") \
+                and _UNET_CONV1D.fullmatch(path[-2]):
+            return value.T[:, :, None]  # a UNet attention's Dense -> Conv1d (O, I, 1)
         if value.ndim == 2:
             return value.T  # (I, O) -> (O, I)
         if value.ndim == 3 and path[-1] == "out":  # (heads, head_dim, dim)

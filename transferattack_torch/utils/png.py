@@ -1,4 +1,4 @@
-"""PNG read and write, and PIL's bilinear resize, in the standard library and numpy.
+"""PNG read and write, and PIL's bilinear and bicubic resizes, in the standard library and numpy.
 
 The JAX package reads and writes images with PIL (``utils/data.py``); the
 card's machine has no PIL, so the port carries what the data path needs:
@@ -9,7 +9,8 @@ card's machine has no PIL, so the port carries what the data path needs:
   Anything else (not a PNG, another bit depth, Adam7 interlace, a damaged
   file) raises ``ValueError`` naming the file and the reason.
 * :func:`encode_png`: an RGB PNG with filter 0 (None) on every row.
-* :func:`resize_bilinear`: PIL's ``Image.resize(..., Image.BILINEAR)`` on
+* :func:`resize_bilinear`, :func:`resize_bicubic`: PIL's ``Image.resize``
+  with ``Image.BILINEAR`` or ``Image.BICUBIC`` (its default for RGB) on
   uint8 images, bit for bit: its two-pass fixed-point resample (22
   precision bits, a horizontal pass, a clip to uint8, then a vertical pass,
   and a support scaled by ``max(in/out, 1)`` when shrinking).
@@ -168,14 +169,28 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(encode_png(img))
 
 
-def _bilinear_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
-    bilinear filter: per output pixel, the first input index and the
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    """PIL's ``bilinear_filter`` (support 1)."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's ``bicubic_filter`` (a = -0.5, support 2), its products in C's order."""
+    x = np.abs(x)
+    a = -0.5
+    near = (((a + 2.0) * x - (a + 3.0)) * x) * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _coeffs(in_size: int, out_size: int, filt, support: float) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for a filter
+    of the given support: per output pixel, the first input index and the
     fixed-point weights of its window, as (out, k) int64 arrays (input
     indices clipped; weights past the window are 0)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) truncates toward 0; a negative xmin is clipped to 0 anyway
@@ -183,21 +198,29 @@ def _bilinear_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarra
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
     x = np.arange(ksize)
     # PIL multiplies by the reciprocal, which rounds unlike a division
-    w = np.maximum(1.0 - np.abs((x[None] + xmin[:, None] - center[:, None] + 0.5)
-                                * (1.0 / filterscale)), 0.0)
+    w = filt((x[None] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(x[None] < xmax[:, None], w, 0.0)
-    ww = w.sum(axis=1, keepdims=True)
+    ww = np.zeros(out_size)
+    for k in range(ksize):  # PIL's running sum, in its order
+        ww = ww + w[:, k]
+    ww = ww[:, None]
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
-    fixed = np.trunc(0.5 + w * (1 << _PRECISION_BITS)).astype(np.int64)
+    # C's (int) of w·2^22 ± 0.5: rounded half away from zero (bicubic
+    # weights can be negative)
+    fixed = np.trunc(w * (1 << _PRECISION_BITS) + np.where(w < 0, -0.5, 0.5)).astype(np.int64)
     idx = np.minimum(xmin[:, None] + x[None], in_size - 1)
     return idx, fixed
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, filt,
+                   support: float) -> np.ndarray:
     """One pass of PIL's resample along ``axis`` of a uint8 array, as one
     float64 matrix product: every product and partial sum is an integer
-    below 2**31, so the sum is exact in any order, as PIL's int32 one is."""
-    idx, w = _bilinear_coeffs(img.shape[axis], out_size)
+    below 2**31 in magnitude (bicubic's negative weights included: their
+    absolute sum stays under 1.25·2**22), so the sum is exact in any order,
+    as PIL's int32 one is.  PIL's ``clip8`` then takes the sum's floor over
+    2**22 and clips it to [0, 255], a negative sum to 0."""
+    idx, w = _coeffs(img.shape[axis], out_size, filt, support)
     dense = np.zeros((out_size, img.shape[axis]))
     np.add.at(dense, (np.arange(out_size)[:, None], idx), w)
     src = np.moveaxis(img, axis, 0).astype(np.float64)
@@ -206,12 +229,22 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def _resize(img: np.ndarray, size: Tuple[int, int], filt, support: float) -> np.ndarray:
+    out_h, out_w = size
+    if img.shape[1] != out_w:
+        img = _resample_axis(img, out_w, 1, filt, support)
+    if img.shape[0] != out_h:
+        img = _resample_axis(img, out_h, 0, filt, support)
+    return img
+
+
 def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """``Image.fromarray(img).resize((size[1], size[0]), Image.BILINEAR)`` for
     an (H, W, C) uint8 array: ``size`` is (rows, columns)."""
-    out_h, out_w = size
-    if img.shape[1] != out_w:
-        img = _resample_axis(img, out_w, 1)
-    if img.shape[0] != out_h:
-        img = _resample_axis(img, out_h, 0)
-    return img
+    return _resize(img, size, _bilinear, 1.0)
+
+
+def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``Image.fromarray(img).resize((size[1], size[0]))`` for an RGB (H, W,
+    C) uint8 array: PIL's default filter for RGB, ``Image.BICUBIC``."""
+    return _resize(img, size, _bicubic, 2.0)
