@@ -184,11 +184,32 @@ random weights.  Phases:
     0 launches, ms a forward); the ImageNet-256 UNet (553M parameters, its
     operations counted on the meta device), built and seeded on the card,
     under both samplers at 256², batch 4, t* 150 (150 UNet forwards each)
-    and under DiffAttack on ResNet-50 at 224², batch 1, 20 steps from 15, 30
-    iterations (945 UNet forwards): seconds a call, ms a UNet forward by CUDA
-    events, peak memory, a finite delta with x + delta in [0, 1]; (c) the
-    CLI: ``--attack aim`` writes one subdirectory a target class, and
-    ``--attack diffattack --model toy_cnn`` runs on the tiny fallback at 32².
+    and under DiffAttack on ResNet-50 at 224², batch 1, 20 steps from 15, 5
+    of its 30 iterations (printed as ``reduced``; 195 UNet forwards):
+    seconds a call, ms a UNet forward by CUDA events, peak memory, a finite
+    delta with x + delta in [0, 1]; (c) the CLI: ``--attack aim`` writes one
+    subdirectory a target class, and ``--attack diffattack --model toy_cnn``
+    runs on the tiny fallback at 32².
+21. the training entry points and DiffAttack's Stable Diffusion backend:
+    (a) on the card against the CPU, fp32 with TF32 off, on seeded weights:
+    a tiny SDUNet attending at three resolutions (output and its 14 maps),
+    a tiny SDVAE (encode, decode) and CLIP within ``1e-3·max|ref|``; SD
+    DiffAttack on ``toy_cnn`` at 32²: ``keep`` the same strict subset on
+    both, the loss off the clean latent within 1e-4 relative and its latent
+    gradient at cosine 0.9999; one generator training step against
+    ResNet-18 at 64² and one ``train_sp`` step the same way; the writer's
+    round trip of the card-trained generator bit for bit; (b) at full width:
+    ``train_generator`` on GeneratorResnet against ResNet-50 at 224², batch
+    16, 20 of JAX's 2000 steps (``reduced``): ms a step by CUDA events, its
+    operations, img/s, peak memory, the target CE fallen, the written
+    checkpoint loaded strictly by TTP, which runs on it; ``PAM.train_sp`` on
+    ResNet-50 for one epoch of 15 over 8 images (``reduced``); SD DiffAttack
+    at SD-1.5 widths (UNet, VAE, CLIP seeded on the card), 512², batch 1,
+    20 steps from 15, 10 of its 30 iterations (``reduced``; 675 UNet
+    forwards with those recomputed in the backward): seconds, ms a UNet
+    forward by CUDA events,
+    peak memory, the loss fallen, x + delta in [0, 1]; (c) the training CLI
+    (``--steps 2``) on 4 PNGs, then ``--attack ttp`` reading its checkpoint.
 
 Each phase prints its seconds (``[time]``).  Any failed phase ends the run
 with a non-zero exit.  Without a card it fails
@@ -407,8 +428,29 @@ LOSS_TOL = 1e-4     # DiffAttack's loss, card vs CPU, relative
 GRAD_COSINE = 0.9999  # DiffAttack's latent gradient, card vs CPU
 DIFFPURE_SIZE, DIFFPURE_BATCH, DIFFPURE_T_STAR = 256, 4, 150  # run_diffpure's defaults
 DIFFATTACK_KW = dict(diffusion_steps=20, start_step=15, iterations=30)  # the official ones
+# 20b: DiffAttack on the guided-diffusion UNet cut to 5 of its 30 iterations
+# (printed as ``reduced``), to leave phase 21 room in the time budget
+DIFFATTACK_GD_KW = dict(DIFFATTACK_KW, iterations=5)
 DIFF_SMALL = dict(diffusion_steps=4, start_step=3)  # 20a: DiffAttack on toy_cnn at 32²
 DIFF_TWO_RES = dict(channel_mult=(1, 2, 2), attention_ds=(2, 4))  # 20a: its UNet
+# phase 21: the training entry points and DiffAttack's Stable Diffusion backend
+# 21a: a UNet attending at 8², 4² and 2² tokens of an 8² latent (self maps of
+# 64, 16, 4, 16, 16, 64, 64 tokens: ``keep`` is the 16s and the 4), a
+# one-stage VAE (16² images), a two-layer CLIP, DiffAttack on toy_cnn at 32²
+SD_TINY = dict(unet=dict(block_out_channels=(32, 64, 64), layers_per_block=1, heads=2,
+                         cross_attention_dim=16, norm_groups=8),
+               vae=dict(block_out_channels=(32, 64), layers_per_block=1, groups=8),
+               text=dict(width=16, layers=2, heads=2))
+SD_SMALL = dict(diffusion_steps=4, start_step=2, image_size=16)
+# 21b: JAX's training defaults but 20 of its 2000 steps; train_sp one epoch
+# of its 15 over 8 images; SD DiffAttack at the official hyperparameters but
+# 10 of its 30 iterations (the 30 took 167.7 s on an H100, which would take
+# the script past 900 s)
+SD_DIFFATTACK_KW = dict(DIFFATTACK_KW, iterations=10)
+TRAIN_KW = dict(batchsize=16, lr=2e-4, eps=16 / 255)
+TRAIN_STEPS, TRAIN_IMAGES, TRAIN_TARGET = 20, 32, generation_target_classes[0]
+SP_IMAGES = 8
+CLI_TRAIN_IMAGES = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -2294,7 +2336,7 @@ def run_diffusion_family(dev, smi) -> dict:
     torch.cuda.empty_cache()
 
     atk = tt.load_attack_class("diffattack")(model_name="resnet50", compute_dtype="bfloat16",
-                                             device="cuda", **DIFFATTACK_KW)
+                                             device="cuda", **DIFFATTACK_GD_KW)
     atk.dp.unet = unet
     x = torch.from_numpy(np.random.RandomState(205).rand(1, 224, 224, 3)
                          .astype(np.float32)).to(dev)
@@ -2310,7 +2352,8 @@ def run_diffusion_family(dev, smi) -> dict:
     secs = time.perf_counter() - t0
     n = launches["diffattack"] = fused_sign_update.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    steps, its = DIFFATTACK_KW["start_step"], DIFFATTACK_KW["iterations"]
+    steps, its = DIFFATTACK_GD_KW["start_step"], DIFFATTACK_GD_KW["iterations"]
+    reduced = [f"iterations {DIFFATTACK_KW['iterations']} -> {its}"]
     # inversion, the clean maps, each step's decode and its recomputation in
     # the backward, the last decode
     expected = steps + steps + its * 2 * steps + steps
@@ -2328,17 +2371,17 @@ def run_diffusion_family(dev, smi) -> dict:
         ce0 = float(softmax_cross_entropy(atk.surrogate.apply(x), y).mean())
         ce1 = float(softmax_cross_entropy(atk.surrogate.apply(adv), y).mean())
     print(f"[20b diffusion] diffattack: resnet50 fp32 (--bf16 ignored, as in JAX), full UNet, "
-          f"batch 1, 224², {steps} of {DIFFATTACK_KW['diffusion_steps']} DDIM steps, {its} "
+          f"batch 1, 224², {steps} of {DIFFATTACK_GD_KW['diffusion_steps']} DDIM steps, {its} "
           f"AdamW iterations: {atk.dp.forwards} UNet forwards, {n} update-kernel launches, "
           f"{secs:.3f} s a call, {fwd_ms:.3f} ms a UNet forward (CUDA events, warm; "
           f"{flops[224] / fwd_ms / 1e9:.1f} TFLOP/s), peak "
           f"memory {peak:.2f} GiB, |delta|inf*255 = {float(delta.abs().max()) * 255:.2f}, loss "
           f"{loss0:.6g} at the first iteration -> {loss1:.6g} at the last, CE at the label "
-          f"{ce0:.6g} -> {ce1:.6g} on {smi}")
+          f"{ce0:.6g} -> {ce1:.6g} on {smi}; reduced: {', '.join(reduced)}")
     print(json.dumps({"diffusion_key": "diffattack", "model": "resnet50", "size": 224,
-                      "batch": 1, **DIFFATTACK_KW, "unet_forwards": atk.dp.forwards,
+                      "batch": 1, **DIFFATTACK_GD_KW, "unet_forwards": atk.dp.forwards,
                       "launches": n, "seconds": secs, "forward_ms": fwd_ms, "peak_gib": peak,
-                      "objective": [loss0, loss1], "ce": [ce0, ce1], "reduced": []}))
+                      "objective": [loss0, loss1], "ce": [ce0, ce1], "reduced": reduced}))
     del atk, unet, delta, adv, x
     torch.cuda.empty_cache()
 
@@ -2393,6 +2436,376 @@ def run_diffusion_family(dev, smi) -> dict:
         finally:
             os.chdir(cwd)
     return launches
+
+
+@contextlib.contextmanager
+def weights_dir(path: str):
+    """``$TA_TPU_WEIGHTS_DIR`` set to ``path`` inside."""
+    old = os.environ.get("TA_TPU_WEIGHTS_DIR")
+    os.environ["TA_TPU_WEIGHTS_DIR"] = path
+    try:
+        yield path
+    finally:
+        if old is None:
+            del os.environ["TA_TPU_WEIGHTS_DIR"]
+        else:
+            os.environ["TA_TPU_WEIGHTS_DIR"] = old
+
+
+def cosine_of(a, b) -> float:
+    a, b = a.detach().cpu().double().flatten(), b.detach().cpu().double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def write_pngs(root: str, n: int, seed: int, side: int = 224):
+    """``n`` seeded PNGs under ``root/images`` and a ``labels.csv``."""
+    rng = np.random.RandomState(seed)
+    names = [f"img_{i:04d}.png" for i in range(n)]
+    save_images(os.path.join(root, "images"), rng.rand(n, side, side, 3).astype(np.float32),
+                names)
+    with open(os.path.join(root, "labels.csv"), "w") as f:
+        f.write("filename,label\n" + "".join(f"{m},{rng.randint(1, 1001)}\n" for m in names))
+
+
+def sd_card_vs_cpu() -> dict:
+    """21a, fp32 with TF32 off, the same seeded weights on both: {check:
+    (value, bound)}."""
+    from transferattack_torch.defense.gd_unet import init_nonzero
+    from transferattack_torch.generation import sd_text, sd_unet, sd_vae
+    from transferattack_torch.generation import train as ttrain
+    from transferattack_torch.generation.generators import GeneratorResnet
+    from transferattack_torch.input_transformation.learned import SemanticPredictor
+    from transferattack_torch.utils.bridge import load_flat_variables, state_dict_to_flat
+
+    out = {}
+    gen = torch.Generator().manual_seed(210)
+    mods = {"unet": init_nonzero(sd_unet.SDUNet(**SD_TINY["unet"]), gen),
+            "vae": init_nonzero(sd_vae.SDVAE(**SD_TINY["vae"]), gen),
+            "text": init_nonzero(sd_text.CLIPTextEncoder(**SD_TINY["text"]), gen)}
+    z, t = torch.randn(2, 4, 8, 8, generator=gen), torch.tensor([5.0, 641.0])
+    ctx, img = torch.randn(2, 77, 16, generator=gen), torch.rand(2, 3, 16, 16, generator=gen)
+    ids = torch.randint(0, 49408, (2, 77), generator=gen)
+    res = {}
+    for w in ("cpu", "cuda"):
+        m = {k: copy.deepcopy(v).to(w, memory_format=torch.channels_last) for k, v in mods.items()}
+        maps = {"attn": [], "cross_attn": []}
+        cl = dict(memory_format=torch.channels_last)
+        with torch.no_grad():
+            eps = m["unet"](z.to(w).contiguous(**cl), t.to(w), ctx.to(w), maps)
+            lat = m["vae"].encode((img.to(w) * 2 - 1).contiguous(**cl))
+            res[w] = (eps, maps["attn"] + maps["cross_attn"], lat, m["vae"].decode(lat),
+                      m["text"](ids.to(w)), [s.shape[-1] for s in maps["attn"]])
+    (eps, maps, lat, dec, txt, tokens), (r_eps, r_maps, r_lat, r_dec, r_txt, r_tokens) = (
+        res["cuda"], res["cpu"])
+    check(tokens == r_tokens == [64, 16, 4, 16, 16, 64, 64],
+          f"tiny SDUNet: self maps of {tokens} tokens on the card, {r_tokens} on the CPU")
+    out["tiny SDUNet (attention at 8², 4², 2² tokens), output"] = (rel_err(eps, r_eps), DIFF_TOL)
+    out["tiny SDUNet, its 7 self and 7 cross attention maps"] = (
+        max(rel_err(a, b) for a, b in zip(maps, r_maps)), DIFF_TOL)
+    out["tiny SDVAE at 16², encode"] = (rel_err(lat, r_lat), DIFF_TOL)
+    out["tiny SDVAE, decode"] = (rel_err(dec, r_dec), DIFF_TOL)
+    out["tiny CLIPTextEncoder, 77 tokens"] = (rel_err(txt, r_txt), DIFF_TOL)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the fallbacks, replaced at once; hashed token ids
+        atks = {w: tt.load_attack_class("diffattack")(
+            backend="sd", model_name="toy_cnn", device=w, **SD_SMALL,
+            **{k: (sd_unet.SDUNet, sd_vae.SDVAE, sd_text.CLIPTextEncoder)[i](**SD_TINY[k])
+               for i, k in enumerate(("unet", "vae", "text"))}) for w in ("cpu", "cuda")}
+    xs, y = torch.rand(2, 32, 32, 3, generator=gen), np.array([3, 7])
+    far = 0.5 * torch.randn(2, 4, 8, 8, generator=gen)
+    found, keeps = {}, {}
+    for w, atk in atks.items():
+        for k, module in mods.items():
+            getattr(atk, k).load_state_dict(module.state_dict())
+        state = atk.prepare(xs.to(w), y)
+        keeps[w] = state["keep"]
+        latent = (state["latent0"] + far.to(w)).requires_grad_(True)
+        loss = atk.loss(latent, xs.to(w), torch.from_numpy(y).to(w), state)
+        found[w] = loss.item(), torch.autograd.grad(loss, latent)[0]
+    check(keeps["cuda"] == keeps["cpu"] == [1, 2, 3, 4],
+          f"SD DiffAttack: the maps kept, {keeps['cuda']} on the card, {keeps['cpu']} on the CPU")
+    (v, g), (ref, r) = found["cuda"], found["cpu"]
+    what = "SD DiffAttack on toy_cnn at 32², 2 of 4 steps, loss off the clean latent"
+    out[what] = (abs(v - ref) / abs(ref), LOSS_TOL)
+    out[f"{what}, 1 - cosine of the latent gradients"] = (1 - cosine_of(g, r), 1 - GRAD_COSINE)
+
+    # one generator training step against ResNet-18 at 64², and the writer's
+    # round trip of the card's trained state
+    net = GeneratorResnet()
+    init_weights(net, torch.Generator().manual_seed(211))
+    x64, target = torch.rand(2, 64, 64, 3, generator=gen), torch.full((2,), TRAIN_TARGET)
+    steps = {}
+    for w in ("cpu", "cuda"):
+        surrogate = make_model("resnet18", pretrained=False, input_size=64, device=w)
+        g = copy.deepcopy(net).to(w, memory_format=torch.channels_last)
+        g.eval().requires_grad_(True)
+        loss = ttrain.generator_loss(g, surrogate, x64.to(w), target.to(w), EPS)
+        loss.backward()
+        steps[w] = loss.item(), torch.cat([p.grad.flatten() for p in g.parameters()]), g, surrogate
+    (v, gr, card_net, card_surrogate), (ref, r, _, _) = steps["cuda"], steps["cpu"]
+    out["generator training at 64² on ResNet-18, loss"] = (abs(v - ref) / abs(ref), LOSS_TOL)
+    out["generator training, 1 - cosine of the parameter gradients"] = (
+        1 - cosine_of(gr, r), 1 - GRAD_COSINE)
+    _, step = ttrain.make_train_step(card_net, card_surrogate, EPS, TRAIN_KW["lr"])
+    step(x64.cuda(), target.cuda())
+    back = GeneratorResnet()
+    load_flat_variables(back, state_dict_to_flat(card_net))
+    differ = sum(int(not torch.equal(a, b.cpu())) for a, b in zip(
+        back.state_dict().values(), card_net.state_dict().values()))
+    out["the writer's round trip of the card-trained generator, tensors not bit-exact"] = (
+        differ, 0)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pams = {w: tt.load_attack_class("pam")(model_name="resnet18", device=w)
+                for w in ("cpu", "cuda")}
+    sp = SemanticPredictor()
+    init_weights(sp, torch.Generator().manual_seed(212))
+    x224 = torch.rand(1, 224, 224, 3, generator=gen)
+    sps = {}
+    for w, pam in pams.items():
+        s = copy.deepcopy(sp).to(w).requires_grad_(True)
+        loss = pam.sp_loss(s, x224.to(w), torch.tensor([5], device=w))
+        loss.backward()
+        sps[w] = loss.item(), torch.cat([p.grad.flatten() for p in s.parameters()])
+    (v, gr), (ref, r) = sps["cuda"], sps["cpu"]
+    out["train_sp step on ResNet-18 at 224², loss"] = (abs(v - ref) / abs(ref), LOSS_TOL)
+    out["train_sp step, 1 - cosine of the predictor's gradients"] = (
+        1 - cosine_of(gr, r), 1 - GRAD_COSINE)
+    return out
+
+
+def run_sd_family(dev, smi) -> dict:
+    """Phase 21; returns each run's update-kernel launches (none)."""
+    from transferattack_torch.generation import train as ttrain
+    from transferattack_torch.generation.generators import GeneratorResnet
+    from transferattack_torch.models import load_npz
+    from transferattack_torch.utils.bridge import state_dict_to_flat
+    from transferattack_torch.utils.data import AdvDataset
+
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for what, (value, bound) in sd_card_vs_cpu().items():
+        check(value <= bound, f"{what}: card vs CPU {value} (bound {bound})")
+        print(f"[21a sd/train] {what}, seeded, fp32: card vs CPU {value:.3e} (bound {bound:g})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    launches = {}
+
+    # (b) full width
+    print(f"[21b sd/train] torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        data = os.path.join(work, "data")
+        write_pngs(data, TRAIN_IMAGES, seed=213)
+        net = GeneratorResnet()
+        init_weights(net, torch.Generator().manual_seed(0))  # train_generator's own draw
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        path = ttrain.train_generator(data, TRAIN_TARGET, steps=TRAIN_STEPS, generator=net,
+                                      log_every=10, device=dev, losses=losses, **TRAIN_KW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = launches["train_generator"] = fused_sign_update.launches
+        ce = [float(v) for v in losses]
+        check(n == 0 and len(ce) == TRAIN_STEPS, f"train_generator: {len(ce)} steps, {n} launches")
+        check(all(np.isfinite(ce)) and ce[-1] < ce[0],
+              f"train_generator: the target CE went from {ce[0]} to {ce[-1]}")
+        written = load_npz(path)
+        ttp = tt.load_attack_class("ttp")(device="cuda")
+        idx = generation_target_classes.index(TRAIN_TARGET)
+        loaded = state_dict_to_flat(ttp.generator(idx))  # a strict load of the file
+        check(set(loaded) == set(written) and all(np.array_equal(loaded[k], written[k])
+                                                  for k in written),
+              f"ttp: the generator of class {TRAIN_TARGET} is not the trained file")
+        xs, _, _ = next(AdvDataset(data).as_batches(TRAIN_KW["batchsize"]))
+        x = torch.from_numpy(xs).to(dev)
+        delta = ttp(x, None, idx=idx)
+        check(bool(torch.isfinite(delta).all()) and 0 < float(delta.abs().max()) <= EPS + 1e-6,
+              "ttp on the trained generator: delta not finite, zero or beyond eps")
+        # a warm step's device time, and its operations, on the first batch
+        surrogate = make_model("resnet50", device=dev)
+        _, step = ttrain.make_train_step(net, surrogate, TRAIN_KW["eps"], TRAIN_KW["lr"])
+        target = torch.full((len(xs),), TRAIN_TARGET, device=dev)
+        with FlopCounterMode(display=False) as counter:
+            step(x, target)
+        tflop = counter.get_total_flops() / 1e12
+        step_ms = median_ms(lambda: step(x, target), reps=5, burst=2, warmup=1)
+        reduced = [f"steps 2000 -> {TRAIN_STEPS}"]
+        batch = TRAIN_KW["batchsize"]
+        print(f"[21b sd/train] train_generator: GeneratorResnet against resnet50 fp32, 224², "
+              f"batch {batch}, {TRAIN_STEPS} Adam steps over {TRAIN_IMAGES} PNGs: {secs:.3f} s "
+              f"(PNG reads and the surrogate's build included), {step_ms:.3f} ms a step (CUDA "
+              f"events, warm; {tflop:.4f} TFLOP a step, {tflop / step_ms * 1e3:.1f} TFLOP/s), "
+              f"{batch / step_ms * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, {n} update-kernel "
+              f"launches, target CE {ce[0]:.6g} at the first step -> {ce[-1]:.6g} at the last; "
+              f"{os.path.basename(path)} loads strictly into TTP, which runs on it, on {smi}; "
+              f"reduced: {', '.join(reduced)}")
+        print(json.dumps({"train_key": "train_generator", "model": "resnet50", "size": 224,
+                          "batch": batch, "steps": TRAIN_STEPS, "seconds": secs,
+                          "step_ms": step_ms, "tflop_per_step": tflop,
+                          "img_per_s": batch / step_ms * 1e3, "peak_gib": peak, "launches": n,
+                          "ce": [ce[0], ce[-1]], "reduced": reduced}))
+        del ttp, surrogate, step, net, x, delta
+        torch.cuda.empty_cache()
+
+        sp_data = os.path.join(work, "sp_data")
+        write_pngs(sp_data, SP_IMAGES, seed=214)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the predictor's own absence
+            pam = tt.load_attack_class("pam")(model_name="resnet50", device=dev)
+        pam.train_epoch = 1
+        torch.cuda.synchronize()
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        sp = pam.train_sp(sp_data)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches["train_sp"] = fused_sign_update.launches
+        x1 = torch.from_numpy(next(AdvDataset(sp_data).as_batches(1))[0]).to(dev)
+        ratios = pam.ratios(x1)
+        check(n == 0 and os.path.exists(os.path.join(work, "weights",
+                                                     "pam_semantic_predictor.npz")),
+              f"train_sp: {n} launches, or no pam_semantic_predictor.npz")
+        check(pam.sp is sp and bool(((ratios >= 0.9) & (ratios <= 1.0)).all()),
+              f"train_sp: ratios {ratios.tolist()} out of [0.9, 1]")
+        s = copy.deepcopy(sp).requires_grad_(True)
+        opt = ttrain.adam(s.parameters(), 1e-4)
+        y1 = torch.tensor([1], device=dev)
+
+        def sp_step():
+            loss = pam.sp_loss(s, x1, y1)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+        sp_ms = median_ms(sp_step, reps=5, burst=2, warmup=1)
+        reduced = ["train_epoch 15 -> 1", f"{SP_IMAGES} images"]
+        print(f"[21b sd/train] PAM.train_sp on resnet50 fp32, 224², batch 1 (8 baseline-mixed "
+              f"copies a step): {SP_IMAGES} steps in {secs:.3f} s (PNG reads included), "
+              f"{sp_ms:.3f} ms a step (CUDA events, warm), {n} update-kernel launches, "
+              f"pam_semantic_predictor.npz written and read, on {smi}; reduced: "
+              f"{', '.join(reduced)}")
+        print(json.dumps({"train_key": "train_sp", "model": "resnet50", "size": 224, "batch": 1,
+                          "steps": SP_IMAGES, "seconds": secs, "step_ms": sp_ms, "launches": n,
+                          "reduced": reduced}))
+        del pam, sp, s, opt
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the three SD fallbacks, hashed token ids
+        atk = tt.load_attack_class("diffattack")(backend="sd", model_name="resnet50",
+                                                 compute_dtype="bfloat16", device=dev,
+                                                 **SD_DIFFATTACK_KW)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    params = {k: sum(p.numel() for p in getattr(atk, k).parameters()) / 1e6
+              for k in ("unet", "vae", "text")}
+    print(f"[21b sd/train] SD-1.5 stack built and seeded on the card in {build:.2f} s: UNet "
+          f"{params['unet']:.1f}M, VAE {params['vae']:.1f}M, CLIP text {params['text']:.1f}M "
+          f"parameters")
+    x = torch.from_numpy(np.random.RandomState(215).rand(1, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = atk.surrogate.apply(x).argmax(-1)
+        ctx = atk.text(torch.from_numpy(atk.prompt_ids(y.cpu().numpy())[0]).long().to(dev))
+        z = torch.randn(1, 4, 64, 64, device=dev).contiguous(memory_format=torch.channels_last)
+        t = torch.full((1,), 500.0, device=dev)
+        with FlopCounterMode(display=False) as counter:
+            atk.unet(z, t, ctx)
+        unet_tflop = counter.get_total_flops() / 1e12
+        fwd_ms = median_ms(lambda: atk.unet(z, t, ctx), reps=5, burst=2, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    atk.forwards = 0
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    delta = atk(x, y.cpu().numpy())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = launches["diffattack_sd"] = fused_sign_update.launches
+    steps, its = SD_DIFFATTACK_KW["start_step"], SD_DIFFATTACK_KW["iterations"]
+    reduced = [f"iterations {DIFFATTACK_KW['iterations']} -> {its}"]
+    # inversion, the clean trajectory, each iteration's decode (2 forwards a
+    # step) and its recomputation in the backward, the last decode
+    expected = steps + 2 * steps + its * 4 * steps + 2 * steps
+    check(n == 0 and atk.forwards == expected,
+          f"diffattack (SD): {atk.forwards} UNet forwards (expected {expected}), {n} launches")
+    check(bool(torch.isfinite(delta).all()) and tuple(delta.shape) == tuple(x.shape),
+          f"diffattack (SD): delta not finite or of shape {tuple(delta.shape)}")
+    adv = x + delta
+    check(float(adv.min()) >= -1e-6 and float(adv.max()) <= 1 + 1e-6,
+          "diffattack (SD): x + delta leaves [0, 1]")
+    loss0, loss1 = atk.losses
+    check(loss1 < loss0, f"diffattack (SD): the loss went from {loss0} at the first iteration "
+          f"to {loss1} at the last")
+    with torch.no_grad():
+        ce0 = float(softmax_cross_entropy(atk.surrogate.apply(x), y).mean())
+        ce1 = float(softmax_cross_entropy(atk.surrogate.apply(adv), y).mean())
+    print(f"[21b sd/train] diffattack (SD backend): resnet50 fp32 (--bf16 ignored, as in JAX), "
+          f"SD-1.5 widths, 512² (latent 64²), batch 1, {steps} of "
+          f"{SD_DIFFATTACK_KW['diffusion_steps']} DDIM steps, {its} AdamW iterations: "
+          f"{atk.forwards} UNet forwards, {n} update-kernel launches, {secs:.3f} s a call, "
+          f"{fwd_ms:.3f} ms a UNet forward (CUDA events, warm; {unet_tflop:.4f} TFLOP, "
+          f"{unet_tflop / fwd_ms * 1e3:.1f} TFLOP/s), peak memory {peak:.2f} GiB, "
+          f"|delta|inf*255 = {float(delta.abs().max()) * 255:.2f}, loss {loss0:.6g} at the "
+          f"first iteration -> {loss1:.6g} at the last, CE at the label {ce0:.6g} -> "
+          f"{ce1:.6g} on {smi}; reduced: {', '.join(reduced)}")
+    print(json.dumps({"sd_key": "diffattack_sd", "model": "resnet50", "size": 224,
+                      "sd_size": 512, "batch": 1, **SD_DIFFATTACK_KW,
+                      "params_m": params, "unet_forwards": atk.forwards, "launches": n,
+                      "seconds": secs, "forward_ms": fwd_ms, "unet_tflop": unet_tflop,
+                      "peak_gib": peak, "objective": [loss0, loss1], "ce": [ce0, ce1],
+                      "reduced": reduced}))
+    del atk, delta, adv, x, z, ctx
+    torch.cuda.empty_cache()
+
+    # (c) the CLIs: train a generator, then attack with it
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        os.chdir(work)
+        try:
+            data = os.path.join(work, "data")
+            names, clean = write_cli_data(data, CLI_TRAIN_IMAGES)
+            fused_sign_update.launches = 0
+            t0 = time.perf_counter()
+            path = ttrain.main(["--input_dir", data, "--target_class", str(TRAIN_TARGET),
+                                "--steps", "2"])
+            train_secs = time.perf_counter() - t0
+            check(os.path.exists(path), f"the training CLI wrote no {path}")
+            out_dir = os.path.join(work, "ttp")
+            t0 = time.perf_counter()
+            cli.main(["--attack", "ttp", "--batchsize", str(CLI_TRAIN_IMAGES), "--input_dir",
+                      data, "--output_dir", out_dir])
+            attack_secs = time.perf_counter() - t0
+            n = launches["cli_train_ttp"] = fused_sign_update.launches
+            check(n == 0, f"train -> ttp: {n} update-kernel launches")
+            classes = sorted(int(c) for c in os.listdir(out_dir) if c.isdigit())
+            check(classes == sorted(generation_target_classes),
+                  f"ttp: the CLI wrote the subdirectories {classes}")
+            worst = check_cli_outputs(os.path.join(out_dir, str(TRAIN_TARGET)), names, clean)
+            ttp = tt.load_attack_class("ttp")(device="cuda")
+            written, loaded = load_npz(path), state_dict_to_flat(ttp.generator(0))
+            check(all(np.array_equal(loaded[k], written[k]) for k in written),
+                  "ttp: class 24's generator is not the CLI-trained file")
+            print(f"[21c sd/train] `python -m transferattack_torch.generation.train "
+                  f"--target_class {TRAIN_TARGET} --steps 2` over {len(names)} PNGs "
+                  f"({train_secs:.2f} s) wrote {os.path.basename(path)}; `--attack ttp` read "
+                  f"it ({attack_secs:.2f} s): {len(classes)} subdirectories, class "
+                  f"{TRAIN_TARGET}'s PNGs at most {worst:.0f} levels from their clean images")
+        finally:
+            os.chdir(cwd)
+    return launches
+
 
 
 def run_cli(work: str):
@@ -2808,7 +3221,12 @@ def main() -> None:
 
     # 20. AIM, the guided-diffusion UNet, DiffPure and DiffAttack
     diffusion_launches_ = run_diffusion_family(dev, smi)
+    torch.cuda.empty_cache()
     phase_seconds(20, clock)
+
+    # 21. the training entry points and DiffAttack's Stable Diffusion backend
+    sd_launches_ = run_sd_family(dev, smi)
+    phase_seconds(21, clock)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -2830,6 +3248,7 @@ def main() -> None:
          "launches_learned": learned_launches_,
          "launches_generation": generation_launches_,
          "launches_diffusion": diffusion_launches_,
+         "launches_sd": sd_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

@@ -337,7 +337,7 @@ def test_eval_bf16_model_matches_jax(cli_runs, monkeypatch):
     (["--model_axis", "2"], NotImplementedError),
     (["--checkpoint_every", "5"], NotImplementedError),
     (["--attack", "no_such_attack"], ValueError),  # every registry key is ported
-    (["--attack", "diffattack"], NotImplementedError),  # the SD backend its weights ask for
+    (["--attack", "diffattack"], ValueError),  # the SD backend reads its weights strictly
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, error):
     from transferattack_torch import main as tmain

@@ -24,8 +24,10 @@ package's, on the CPU.
   (sign agreement > 0.99), JAX's loop run from its own methods with its
   UNet jitted once; the port's AdamW given JAX's two gradients lands on
   optax's latent (``ADAMW_TOL``, tight enough to see torch's default weight
-  decay); the attention terms steer the result; the SD backend raises.
+  decay); the attention terms steer the result; ``auto`` and ``backend="sd"``
+  build the SD backend, which loads its files strictly.
 """
+import os
 import re
 import warnings
 
@@ -38,6 +40,7 @@ import torch
 
 import transferattack_tpu.models as jm
 import transferattack_torch as tt
+import transferattack_torch.models as tm
 from test_gd_unet_parity import TUNet
 from test_torch_port_models import flatten, random_variables, registry_pair, unflatten
 from transferattack_tpu.attack import softmax_cross_entropy as jce
@@ -47,7 +50,7 @@ from transferattack_tpu.generation import aim as jaim
 from transferattack_torch.defense import diffpure as tdp
 from transferattack_torch.defense import gd_unet as tgd
 from transferattack_torch.generation import aim as taim
-from transferattack_torch.utils.bridge import load_flat_variables, torch_key
+from transferattack_torch.utils.bridge import load_flat_variables, state_dict_to_flat, torch_key
 
 UNET_TOL = 1e-4   # max|port - ref| / max|ref|
 PURIFY_TOL = 1e-4  # absolute, images in [0, 1]
@@ -480,14 +483,45 @@ def test_diffattack_attention_terms_steer_the_result(diffattack):
 
 
 def test_diffattack_sd_backend_raises(tmp_path, monkeypatch):
-    """Converted SD weights resolve ``auto`` to the SD backend, which the
-    port does not have: it raises and names the queue."""
+    """Converted SD weights resolve ``auto`` to the SD backend, as
+    ``backend="sd"`` does: it builds ``SDDiffAttack``, which reads the
+    files strictly (weights that do not fit its modules raise) and records
+    a fallback for a missing one."""
+    from transferattack_torch.generation import diffattack_sd as tds
+    from transferattack_torch.generation import sd_text, sd_unet, sd_vae
+
+    def tiny():
+        return dict(unet=sd_unet.SDUNet(block_out_channels=(32, 64), layers_per_block=1,
+                                        heads=2, cross_attention_dim=16, norm_groups=8),
+                    vae=sd_vae.SDVAE(block_out_channels=(32, 64), layers_per_block=1, groups=8),
+                    text=sd_text.CLIPTextEncoder(width=16, layers=2, heads=2))
+
     monkeypatch.setenv("TA_TPU_WEIGHTS_DIR", str(tmp_path))
+    build = tt.load_attack_class("diffattack")
+    junk = {"params/nothing/kernel": np.zeros((1, 1))}
     for tag in ("sd_unet", "sd_vae"):
-        np.savez(tmp_path / f"{tag}.npz", w=np.zeros(1))
+        np.savez(tmp_path / f"{tag}.npz", **junk)
     assert not taim.sd_weights_present()
-    np.savez(tmp_path / "sd_text.npz", w=np.zeros(1))
+    np.savez(tmp_path / "sd_text.npz", **junk)
     assert taim.sd_weights_present()
-    for kw in ({}, {"backend": "sd"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.load_attack_class("diffattack")(model_name="toy_cnn", device="cpu", **kw)
+    with pytest.raises(ValueError, match="weights do not fit SDUNet"):
+        build(model_name="toy_cnn", device="cpu", **tiny())
+    # the files of seeded modules: ``auto`` loads them into the SD backend
+    seeded = {f"sd_{k}": m for k, m in tiny().items()}
+    for tag, module in seeded.items():
+        tm.init_weights(module, torch.Generator().manual_seed(len(tag)))
+        np.savez(tmp_path / f"{tag}.npz", **state_dict_to_flat(module))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the tokenizer's hashed ids
+        atk = build(model_name="toy_cnn", device="cpu", **tiny())
+    assert isinstance(atk, tds.SDDiffAttack)
+    for tag, module in seeded.items():
+        assert all(torch.equal(a, b) for a, b in zip(
+            getattr(atk, tag[3:]).state_dict().values(), module.state_dict().values()))
+    for tag in seeded:
+        os.remove(tmp_path / f"{tag}.npz")
+    assert not taim.sd_weights_present()
+    with pytest.warns(UserWarning, match="sd_unet.npz not found"):
+        atk = build(backend="sd", model_name="toy_cnn", device="cpu", **tiny())
+    assert isinstance(atk, tds.SDDiffAttack)
+    assert {"sd_unet", "sd_vae", "sd_text"} <= set(tm.fallback_weights_used())

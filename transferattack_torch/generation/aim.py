@@ -9,8 +9,8 @@ JPEG decoder.  Each is resized to the input's side with PIL's default
 filter for RGB, bicubic (``utils/png.resize_bicubic``, bit for bit), as
 JAX resizes the JPEG.
 
-DiffAttack: with Stable Diffusion weights absent, which is the case the
-port supports, it is ``DiffAttackGD``: DDIM inversion of the image to step
+DiffAttack: with the converted Stable Diffusion weights present it is
+``diffattack_sd.SDDiffAttack``; else ``DiffAttackGD``: DDIM inversion of the image to step
 ``start_step`` with DiffPure's guided-diffusion UNet, AdamW on that latent
 against the surrogate's cross-entropy, the self-attention maps' distance to
 the clean trajectory's and the variance of a pseudo cross-attention, then a
@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..attack import softmax_cross_entropy
 from ..models import make_model, nhwc, record_fallback, resolve_device, weights_root
 from ..utils import generation_target_classes
+from ..utils.bridge import save_flat_variables
 from ..utils.png import read_png, resize_bicubic
 from .generators import GeneratorResnet
 from .ttp import GenerativeAttack
@@ -89,6 +90,15 @@ class AIM(GenerativeAttack):
     def checkpoint(self, idx: int):
         return idx, f"{self.ckpt_prefix}_{generation_target_classes[idx]}", self.seed + 151 + idx
 
+    def save_ckpt(self, idx: int, path: Optional[str] = None) -> str:
+        """Write the generator of target index ``idx`` (loaded or drawn
+        first if need be) to ``path``, by default ``aim_<class>.npz`` in the
+        weights directory, in the JAX package's flat layout.  Returns the
+        path."""
+        cls = generation_target_classes[idx]
+        path = path or os.path.join(weights_root(), f"{self.ckpt_prefix}_{cls}.npz")
+        return save_flat_variables(self.generator(idx), path)
+
     def guide(self, idx: int, height: int, width: int) -> torch.Tensor:
         """(1, height, width, 3) guide of target index ``idx`` on the attack's
         device, cached."""
@@ -126,17 +136,16 @@ def sd_weights_present() -> bool:
 class DiffAttack:
     """The registry's ``diffattack``: ``backend`` ``'auto'`` resolves to
     ``'sd'`` when the Stable Diffusion weights are present, else ``'gd'``,
-    which builds :class:`DiffAttackGD` with the other keywords.  The SD
-    backend is not ported: it raises ``NotImplementedError``."""
+    which builds :class:`DiffAttackGD` with the other keywords; ``'sd'``
+    builds ``diffattack_sd.SDDiffAttack``."""
 
     def __new__(cls, backend: str = "auto", **kwargs):
         if backend == "auto":
             backend = "sd" if sd_weights_present() else "gd"
         if backend == "sd":
-            raise NotImplementedError(
-                "DiffAttack's Stable Diffusion backend is not ported yet (ROADMAP.md queue 1, "
-                "the SD stack: diffattack_sd, sd_text, sd_unet, sd_vae); move the sd_*.npz "
-                "weights away or pass backend='gd'")
+            from .diffattack_sd import SDDiffAttack
+
+            return SDDiffAttack(**kwargs)
         return DiffAttackGD(**kwargs)
 
     def __init__(self, device="cuda", **kwargs):

@@ -18,6 +18,7 @@ AITL's :meth:`AITL.transform_lists` and :meth:`AITL.list_draws`, LPM's
 """
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -244,7 +245,7 @@ class PAM(MIFGSM):
     targeted, the copies' is (JAX's, kept).  The plain point and the 32·B
     copies go through the surrogate as one batch.  The predictor loads from
     ``pam_semantic_predictor.npz``; without it every ratio is 1.
-    ``train_sp`` (training the predictor) is not ported yet."""
+    :meth:`train_sp` trains one and writes that file."""
 
     def __init__(self, model_name="resnet50", num_aug_path=8, num_scale=4,
                  train_epoch=15, **kwargs):
@@ -275,6 +276,51 @@ class PAM(MIFGSM):
             for i in range(1, self.num_scale + 1):
                 out.append(xadv * (1.0 / 2**i) + base * (1 - 1.0 / 2**i))
         return torch.stack(out)
+
+    def sp_loss(self, sp: nn.Module, x, y):
+        """The predictor's objective on NHWC ``x`` (``pam.py:136-211``): image
+        0 mixed with each of the 8 baselines at the predicted ratios, and
+        the sum over the 8 copies of the squared margin between the logit
+        of ``y[0]`` and the runner-up."""
+        pred = sp(x.permute(0, 3, 1, 2))[0].reshape(-1, 1, 1, 1)  # (8, 1, 1, 1)
+        x_aug = x[:1] * (1 - pred) + self.baselines.reshape(-1, 1, 1, 3) * pred
+        logits = self.get_logits(x_aug[None])[0]
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        yrep = y[:1].expand(logits.shape[0])
+        true = logits[rows, yrep]
+        second = logits.index_put((rows, yrep), torch.full_like(true, -torch.inf)).max(dim=1).values
+        return torch.sum((true - second) ** 2)
+
+    def train_sp(self, input_dir: str, lr: float = 1e-4, batch_size: int = 1,
+                 save_name: str = "pam_semantic_predictor") -> nn.Module:
+        """``train_SP`` (``pam.py:136-211``): ``train_epoch`` epochs of Adam
+        (optax's: betas 0.9 and 0.999, eps 1e-8) on :meth:`sp_loss` over the
+        ``AdvDataset`` of ``input_dir``, the label of a targeted run its
+        second column; writes ``<save_name>.npz`` to the weights directory,
+        sets ``self.sp`` and returns it.  The predictor starts from the
+        port's own draw (a CPU generator seeded 0; JAX: ``PRNGKey(0)``)."""
+        from ..generation.train import adam
+        from ..models import init_weights, weights_root
+        from ..utils.bridge import save_flat_variables
+        from ..utils.data import AdvDataset
+
+        sp = SemanticPredictor()
+        init_weights(sp, torch.Generator().manual_seed(0))
+        sp = sp.to(self.device).requires_grad_(True)
+        opt = adam(sp.parameters(), lr)
+        ds = AdvDataset(input_dir=input_dir)
+        for _ in range(self.train_epoch):
+            for xs, ys, _names in ds.as_batches(batch_size):
+                y = torch.as_tensor(ys, device=self.device).long()
+                if y.ndim == 2:
+                    y = y[:, 1] if self.targeted else y[:, 0]
+                loss = self.sp_loss(sp, torch.from_numpy(xs).to(self.device), y)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        self.sp = sp.eval().requires_grad_(False)
+        save_flat_variables(self.sp, os.path.join(weights_root(), f"{save_name}.npz"))
+        return self.sp
 
     def get_grad(self, x, y, state: AttackState, gen):
         ratios = self.ratios(x)

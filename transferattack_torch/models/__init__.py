@@ -326,8 +326,8 @@ def aux_path(name: str) -> Optional[str]:
 def load_aux(net: nn.Module, name: str, seed: int, device,
              fallback: Optional[str] = None) -> nn.Module:
     """``net`` filled from ``<name>.npz``, or warned about, recorded (as
-    ``fallback``, by default ``name``) and given a seeded init; frozen, in
-    eval mode, on ``device``."""
+    ``fallback``, by default ``name``) and given a seeded init, drawn on the
+    device ``net`` was built on; frozen, in eval mode, on ``device``."""
     path = aux_path(name)
     if path is not None:
         load_flat_variables(net, load_npz(path))
@@ -335,7 +335,8 @@ def load_aux(net: nn.Module, name: str, seed: int, device,
         record_fallback(fallback or name)
         warnings.warn(f"{name}.npz not found under {weights_root()}; random-init "
                       f"{type(net).__name__} used.")
-        init_weights(net, torch.Generator().manual_seed(seed))
+        built_on = next(net.parameters()).device
+        init_weights(net, torch.Generator(device=built_on).manual_seed(seed))
     return net.eval().requires_grad_(False).to(device)
 
 
@@ -352,34 +353,39 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
 
 # parameters of no layer type, initialised as Flax does: position
 # embeddings and Swin's relative position bias from a normal of std 0.02,
-# class and distillation tokens zero
+# CLIP's position embedding of std 0.01, class and distillation tokens zero
 _NORMAL_002 = ("pos_embed", "pos_embed1", "pos_embed2", "pos_embed3",
                "relative_position_bias_table")
+_NORMAL_001 = ("position_embedding",)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init at Flax's default scales: lecun-normal (truncated
-    at two standard deviations) kernels, zero biases, identity BatchNorm,
-    LayerNorm and GroupNorm, the free parameters of ``_NORMAL_002`` drawn from a
-    normal of std 0.02, LayerScale's at its ``init_values`` (others zero)."""
+    at two standard deviations) kernels and embedding tables (fan-in the
+    width), zero biases, identity BatchNorm, LayerNorm and GroupNorm, the
+    free parameters of ``_NORMAL_002`` drawn from a normal of std 0.02 and
+    of ``_NORMAL_001`` of std 0.01, LayerScale's at its ``init_values``
+    (others zero)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                              nn.Embedding)):
                 # a transposed conv's (in, out, kh, kw): out·kh·kw, as Flax's
-                # transpose_kernel counts it
+                # transpose_kernel counts it; an embedding's (vocab, width): width
                 fan_in = m.weight[0].numel()
                 # the truncated normal's std is 0.8796 of the untruncated one
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-                if m.bias is not None:
+                if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
                 m.reset_parameters()
             else:
                 for pname, p in m.named_parameters(recurse=False):
-                    if pname in _NORMAL_002:
-                        nn.init.normal_(p, 0.0, 0.02, generator=generator)
+                    if pname in _NORMAL_002 + _NORMAL_001:
+                        std = 0.02 if pname in _NORMAL_002 else 0.01
+                        nn.init.normal_(p, 0.0, std, generator=generator)
                     elif pname in ("gamma_1", "gamma_2"):  # CaiT's LayerScale
                         p.fill_(m.init_values)
                     else:

@@ -55,25 +55,39 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   as indices; an attention block's ``qkv`` and ``proj_out`` Dense kernels
   (I, O) become the reference's ``Conv1d`` weights (O, I, 1).
 
+* the Stable Diffusion stack (``generation/sd_*.py``, diffusers' names):
+  ``down_blocks_N``, ``up_blocks_N``, ``resnets_N``, ``attentions_N``,
+  ``transformer_blocks_N`` and ``to_out_N`` as indices, and the joined
+  ``net_0_proj``, ``downsamplers_0_conv``, ``upsamplers_0_conv`` →
+  ``net.0.proj``, ``downsamplers.0.conv``, ``upsamplers.0.conv``; an
+  ``nn.Embed`` table's ``embedding`` becomes ``weight``.
+
 The port's module names are the ones the JAX converter maps (torchvision's
 and timm's; Visformer's are the JAX model's own, see its module), so a
 ``state_dict`` with those names loads with ``load_state_dict`` and needs no
 bridge.
+
+The way back, :func:`save_flat_variables`, writes a module's ``state_dict``
+in that flat layout (what the training entry points save), each key held
+to give back its torch name and value through the rules above.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|stage\d+|conv|net"
                       r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+"
                       r"|encoder|decoder|bottle_neck|conv_block|z_encoder|final"
-                      r"|time_embed|middle_block|in_layers|emb_layers|out_layers|out)_(\d+)")
+                      r"|time_embed|middle_block|in_layers|emb_layers|out_layers|out"
+                      r"|down_blocks|up_blocks|resnets|attentions|transformer_blocks|to_out)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -93,6 +107,10 @@ _RESBLOCK_CHILD = {"conv1": "1", "bn1": "2", "conv2": "6", "bn2": "7"}
 # the guided-diffusion UNet's blocks: ``input_blocks_4_1`` → ``input_blocks.4.1``
 _UNET_BLOCK = re.compile(r"(input_blocks|output_blocks)_(\d+)_(\d+)")
 _UNET_CONV1D = re.compile(r"(input_blocks|output_blocks)_\d+_\d+|middle_block_\d+")
+# the Stable Diffusion stack's joined names (diffusers' Sequentials)
+_SD_JOINED = {"net_0_proj": ["net", "0", "proj"],
+              "downsamplers_0_conv": ["downsamplers", "0", "conv"],
+              "upsamplers_0_conv": ["upsamplers", "0", "conv"]}
 
 
 def _module_path(path) -> list:
@@ -103,6 +121,8 @@ def _module_path(path) -> list:
         unet = _UNET_BLOCK.fullmatch(p)
         if p in _RENAMED:
             parts += _RENAMED[p]
+        elif p in _SD_JOINED:
+            parts += _SD_JOINED[p]
         elif staged:
             parts += [staged.group(1), staged.group(2)] + (
                 ["blocks", staged.group(3)] if staged.group(3) else [staged.group(4)])
@@ -200,3 +220,96 @@ def load_flat_variables(module: torch.nn.Module,
     with torch.no_grad():
         for k, v in sd.items():
             target[k].copy_(torch.tensor(v))
+
+
+# the writer: a torch module type → its parameters' and buffers' Flax
+# (collection, leaf, layout) rules
+_CONVS = (nn.Conv2d, nn.ConvTranspose2d)
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)
+_GEN_BLOCK = re.compile(r"block[123f]|upsampl\d")
+_RESBLOCK_JAX = {v: k for k, v in _RESBLOCK_CHILD.items()}
+
+
+def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
+    """A torch module path → JAX's (the inverse of ``_module_path``)."""
+    parts = name.split(".") if name else []
+    out, i = [], 0
+    while i < len(parts):
+        p, rest = parts[i], parts[i + 1:]
+        if p in ("downsamplers", "upsamplers", "net") and rest[:2] in (["0", "conv"],
+                                                                    ["0", "proj"]):
+            out.append("_".join([p, *rest[:2]]))
+            i += 3
+        elif _GEN_BLOCK.fullmatch(p) and rest and rest[0].isdigit():
+            # GeneratorResnet's Sequential entries: its conv or its BN
+            child = modules[".".join(parts[:i + 2])]
+            out.append(f"{p}_{'conv' if isinstance(child, _CONVS) else 'bn'}")
+            i += 2
+        elif _RESBLOCK.fullmatch(p) and rest[:1] == ["block"] and len(rest) > 1:
+            out += [p, _RESBLOCK_JAX[rest[1]]]
+            i += 3
+        elif rest and rest[0].isdigit():
+            out.append(f"{p}_{rest[0]}")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _jax_leaf(module: nn.Module, name: str, value: np.ndarray):
+    """(collection, leaf, value in JAX's layout) of ``module``'s own
+    ``name``; None for BatchNorm's step counter."""
+    if isinstance(module, _CONVS) and name == "weight":
+        return "params", "kernel", value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if isinstance(module, nn.Linear) and name == "weight":
+        return "params", "kernel", value.T
+    if isinstance(module, (*_CONVS, nn.Linear, *_NORMS)) and name == "bias":
+        return "params", "bias", value
+    if isinstance(module, _NORMS) and name == "weight":
+        return "params", "scale", value
+    if isinstance(module, _NORMS[:2]) and name in ("running_mean", "running_var"):
+        return "batch_stats", name[len("running_"):], value
+    if isinstance(module, _NORMS[:2]) and name == "num_batches_tracked":
+        return None
+    if isinstance(module, nn.Embedding) and name == "weight":
+        return "params", "embedding", value
+    if name == "position_embedding":  # CLIP's (tokens, width) parameter, as it is
+        return "params", name, value
+    raise ValueError(f"no writer rule for {name!r} of {type(module).__name__}")
+
+
+def state_dict_to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
+    """``module``'s ``state_dict`` as JAX's flat variables, the inverse of
+    :func:`flat_to_state_dict`: Conv and ConvTranspose weights to HWIO
+    ``kernel``s, Linear weights to (I, O), norm weights to ``scale``,
+    BatchNorm statistics under ``batch_stats``, an embedding table to
+    ``embedding``, CLIP's ``position_embedding`` as it is.  Raises on a module type it
+    has no rule for, and on a key whose torch name or value the bridge
+    would not give back."""
+    modules = dict(module.named_modules())
+    flat: Dict[str, np.ndarray] = {}
+    for tname, tensor in module.state_dict().items():
+        owner, _, leaf = tname.rpartition(".")
+        value = tensor.detach().cpu().numpy()
+        rule = _jax_leaf(modules[owner], leaf, value)
+        if rule is None:
+            continue
+        collection, jleaf, jvalue = rule
+        key = "/".join([collection, *_jax_module_path(owner, modules), jleaf])
+        jvalue = np.ascontiguousarray(jvalue)
+        if torch_key(key) != tname or not np.array_equal(torch_layout(key, jvalue), value):
+            raise ValueError(f"{tname!r} written as {key!r} would load as "
+                             f"{torch_key(key)!r}")
+        flat[key] = jvalue
+    return flat
+
+
+def save_flat_variables(module: nn.Module, path: str) -> str:
+    """Write ``module`` to ``path`` as JAX's ``save_npz_variables`` does (one
+    ``np.savez`` of ``/``-joined keys), so that JAX's ``load_npz_variables``
+    and :func:`load_flat_variables` both read it.  Returns ``path``."""
+    flat = state_dict_to_flat(module)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+    return path
