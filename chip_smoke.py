@@ -210,6 +210,19 @@ random weights.  Phases:
     forward by CUDA events,
     peak memory, the loss fallen, x + delta in [0, 1]; (c) the training CLI
     (``--steps 2``) on 4 PNGs, then ``--attack ttp`` reading its checkpoint.
+22. the defense suite: (a) on the card against the CPU, fp32 with TF32 off:
+    HGD's DUNet at 75² (its enlargements not 2×) and NRP at nb 2 against fp64
+    within ``1e-3·max|ref|``, RS's votes from one noise bank (a vote may flip
+    only where the CPU's top-two logits tie within ``1e-3·max``),
+    ``run_diffpure`` on the tiny fallback with the same noises (the same
+    CSV); (b) at full width on seeded weights: the six lines of
+    ``scripts.bench_defense`` (RS at N 1000, AT, HGD with Inception-v3 and
+    the four-member chain, NRP, DiffPure's 150 forwards of the full UNet),
+    ``Smooth.predict`` and ``certify`` on 8 images at N 1000, ``run_nrp`` in
+    dynamic mode, ``run_diffpure`` on 4 PNGs with the full UNet seeded on the
+    card and written as ``diffpure_unet.npz``; (c) the defense CLI for all
+    five on 4 of phase 9's PNGs, each printing its ASR line, and NRP's
+    purified PNGs scored by ``--eval``; 0 update-kernel launches throughout.
 
 Each phase prints its seconds (``[time]``).  Any failed phase ends the run
 with a non-zero exit.  Without a card it fails
@@ -383,8 +396,9 @@ IDAA_KEYS = ("idaa", "everywhere", "odi")
 IDAA_SMALL = {"idaa": {"num_scale": 4, "epoch": 2}, "everywhere": {"epoch": 3},
               "odi": {"epoch": 2}}
 # 16b: the official hyperparameters, but Everywhere's 299 steps of 160 images
-# and ODI's 300 renders of 32 images a mesh (about 0.5–1 s a step) capped
-IDAA_CAPS = {"everywhere": {"epoch": 20}, "odi": {"epoch": 10}}
+# and ODI's 300 renders of 32 images a mesh (about 0.5–1 s a step) capped;
+# ODI at 5 keeps the whole script under 1,000 s
+IDAA_CAPS = {"everywhere": {"epoch": 20}, "odi": {"epoch": 5}}
 FIELD_TOL = 1e-5  # of max|ref|: fields, warps and their gradients, card vs CPU
 # phase 17: the ensemble surrogate, DenseNet and the ensemble keys
 ENSEMBLE_KEYS = ("ens", "svre", "cwa", "adaea", "smer")
@@ -444,13 +458,19 @@ SD_TINY = dict(unet=dict(block_out_channels=(32, 64, 64), layers_per_block=1, he
 SD_SMALL = dict(diffusion_steps=4, start_step=2, image_size=16)
 # 21b: JAX's training defaults but 20 of its 2000 steps; train_sp one epoch
 # of its 15 over 8 images; SD DiffAttack at the official hyperparameters but
-# 10 of its 30 iterations (the 30 took 167.7 s on an H100, which would take
-# the script past 900 s)
-SD_DIFFATTACK_KW = dict(DIFFATTACK_KW, iterations=10)
+# 5 of its 30 iterations (the 30 took 167.7 s on an H100 and 10 took 73 s,
+# which with phase 22 took the script past 1,000 s)
+SD_DIFFATTACK_KW = dict(DIFFATTACK_KW, iterations=5)
 TRAIN_KW = dict(batchsize=16, lr=2e-4, eps=16 / 255)
 TRAIN_STEPS, TRAIN_IMAGES, TRAIN_TARGET = 20, 32, generation_target_classes[0]
 SP_IMAGES = 8
 CLI_TRAIN_IMAGES = 4
+# phase 22: the defense suite
+DEFENSE_TOL = 1e-5   # fp32 on the card against fp64 on the CPU: max|d| / max|ref|
+MARGIN_TOL = 1e-3    # RS: a vote may flip only where the top-two logit margin is below this · max
+DUNET_SIDE = 75      # an odd side: the encoder halves it to 38, 19, 10, 5
+RS_IMAGES, RS_N = 8, 1000  # Smooth.predict and certify at the official N
+DEFENSE_IMAGES = 4   # 22b's run_nrp and run_diffpure, 22c's CLI
 
 
 def check(ok: bool, what: str) -> None:
@@ -2807,6 +2827,217 @@ def run_sd_family(dev, smi) -> dict:
     return launches
 
 
+def defense_card_vs_cpu(dev) -> dict:
+    """22a, fp32 with TF32 off: {check: (value, bound)}."""
+    from transferattack_torch.defense import at as tat
+    from transferattack_torch.defense import diffpure as tdp
+    from transferattack_torch.defense import nrp as tnrp
+    from transferattack_torch.defense import rs as trs
+    from transferattack_torch.defense.gd_unet import init_nonzero
+    from transferattack_torch.models import nhwc
+
+    out = {}
+    gen = torch.Generator().manual_seed(220)
+    for what, net, side in (("DUNet", tat.DUNet(), DUNET_SIDE), ("NRP nb 2", tnrp.NRPNet(nb=2), 64)):
+        init_nonzero(net, gen)
+        with torch.no_grad():  # BatchNorm's statistics off the identity too
+            for m in net.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.05, generator=gen)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        x = torch.rand(2, side, side, 3, generator=gen)
+        with torch.no_grad():
+            ref = nhwc(copy.deepcopy(net).double(), x.double())
+            card_out = nhwc(copy.deepcopy(net).to(dev, memory_format=torch.channels_last),
+                            x.to(dev))
+        out[f"{what} at {side}², fp32 card vs fp64 CPU"] = (rel_err(card_out, ref), DEFENSE_TOL)
+
+    # Smooth's votes from one noise bank: equal, but where the CPU's top-two
+    # logits nearly tie
+    surrogates = {w: make_model("resnet18", pretrained=False, input_size=64, device=w)
+                  for w in ("cpu", "cuda")}
+    x = np.random.RandomState(221).rand(2, 64, 64, 3).astype(np.float32)
+    bank = [np.random.RandomState(222 + i).randn(50, *x.shape).astype(np.float32)
+            for i in range(2)]
+    counts = {w: trs.Smooth(s, sigma=0.5)._count_votes(torch.from_numpy(x).to(w), None, 100, 50,
+                                                        noises=bank)
+              for w, s in surrogates.items()}
+    with torch.no_grad():
+        pts = torch.cat([torch.clamp(torch.from_numpy(x)[None] + 0.5 * torch.from_numpy(z), 0, 1)
+                         .reshape(-1, 64, 64, 3) for z in bank])
+        top2 = surrogates["cpu"].apply(pts).topk(2, -1).values
+    margins = ((top2[:, 0] - top2[:, 1]) / top2.abs().max()).sort().values
+    flips = int(np.abs(counts["cuda"] - counts["cpu"]).sum()) // 2
+    near = float(margins[flips - 1]) / MARGIN_TOL if flips else 0.0
+    out[f"Smooth votes, resnet18 64², 2 images x 100 draws: {flips} flipped, the flips' "
+        f"largest CPU margin / {MARGIN_TOL:g}"] = (near, 1.0)
+
+    # run_diffpure on the tiny fallback (ε is 0), the same noises on both
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        data = os.path.join(work, "data")
+        write_pngs(data, 2, seed=223)
+        noises = [[np.random.RandomState(224 + i).randn(2, 64, 64, 3).astype(np.float32)
+                   for i in range(6)]]  # t* 5: the diffusion's noise and 5 steps
+        rows = {}
+        for w in ("cpu", "cuda"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                path = tdp.run_diffpure(data, os.path.join(data, "images"), batchsize=2, t_star=5,
+                                        model_name="resnet18", out_csv=f"dp_{w}.csv", device=w,
+                                        noises=noises)
+            with open(path) as f:
+                rows[w] = f.read()
+        out["run_diffpure, tiny fallback, t* 5, the same noises: CSVs differ"] = (
+            float(rows["cuda"] != rows["cpu"]), 0.0)
+    return out
+
+
+def run_defense_family(dev, smi) -> dict:
+    """Phase 22; returns each defense run's update-kernel launches (none)."""
+    from transferattack_torch.defense import at as tat
+    from transferattack_torch.defense import diffpure as tdp
+    from transferattack_torch.defense import nrp as tnrp
+    from transferattack_torch.defense import rs as trs
+    from transferattack_torch.defense import run as trun
+    from transferattack_torch.defense.gd_unet import GuidedDiffusionUNet, init_nonzero
+    from transferattack_torch.scripts import bench_defense
+    from transferattack_torch.utils.bridge import save_flat_variables
+
+    # (a) the card against the CPU, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for what, (value, bound) in defense_card_vs_cpu(dev).items():
+        check(value <= bound, f"{what}: {value} (bound {bound})")
+        print(f"[22a defense] {what}: {value:.3e} (bound {bound:g})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    launches = {}
+
+    # (b) full width: the bench's lines, then each defense's entry point
+    print(f"[22b defense] torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    lines = bench_defense.main([])
+    print(f"[22b defense] bench_defense: {time.perf_counter() - t0:.2f} s with its builds")
+    launches["bench"] = fused_sign_update.launches
+    check([ln["defense"] for ln in lines] == list(bench_defense.DEFENSES)
+          and all(np.isfinite(ln["sec_per_image"]) and ln["sec_per_image"] > 0 for ln in lines),
+          f"bench_defense printed {lines}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded fallbacks
+        smooth = trs.Smooth(make_model("resnet50", device=dev), sigma=0.5)
+    x = torch.from_numpy(np.random.RandomState(225).rand(RS_IMAGES, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    preds = smooth.predict(x, gen, n=RS_N)
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cert, radii = smooth.certify(x, gen, n=RS_N)
+    certify_s = time.perf_counter() - t0
+    launches["rs"] = fused_sign_update.launches
+    check(preds.shape == cert.shape == radii.shape == (RS_IMAGES,)
+          and all(-1 <= int(p) < 1000 for p in np.concatenate([preds, cert]))
+          and bool((radii >= 0).all()) and all(r == 0 for p, r in zip(cert, radii) if p == -1),
+          f"Smooth: predictions {preds}, certified {cert}, radii {radii}")
+    print(f"[22b defense] Smooth on resnet50 fp32, 224², {RS_IMAGES} images, sigma 0.5, N {RS_N} "
+          f"in chunks of 50: predict {predict_s:.3f} s ({RS_IMAGES * RS_N / predict_s:.0f} "
+          f"noisy images/s; predictions {preds.tolist()}), certify (n0 100, n {RS_N}) "
+          f"{certify_s:.3f} s (classes {cert.tolist()}, radii max {radii.max():.4f}) on {smi}")
+    del smooth, x
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        data = os.path.join(work, "data")
+        write_pngs(data, DEFENSE_IMAGES, seed=226)
+        images = os.path.join(data, "images")
+        purified = os.path.join(work, "purified")
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tnrp.run_nrp(data, images, purified, batchsize=DEFENSE_IMAGES, dynamic=True,
+                         device=dev)
+        nrp_s = time.perf_counter() - t0
+        launches["nrp"] = fused_sign_update.launches
+        written = sorted(os.listdir(purified))
+        check(len(written) == DEFENSE_IMAGES, f"run_nrp wrote {written}")
+        moved = max(float(np.abs(load_image(os.path.join(purified, m))
+                                 - load_image(os.path.join(images, m))).max()) for m in written)
+        print(f"[22b defense] run_nrp, 23 RRDBs fp32, dynamic (x + 0.05·N(0, 1) within ±16/255), "
+              f"{DEFENSE_IMAGES} PNGs at 224²: {nrp_s:.3f} s with the build and PNG IO, "
+              f"purified PNGs up to {moved * 255:.0f} levels from the input")
+
+        # the ImageNet-256 UNet seeded on the card and written as
+        # diffpure_unet.npz, so that run_diffpure takes its 256² path
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            unet = GuidedDiffusionUNet()
+        init_nonzero(unet, torch.Generator(device=dev).manual_seed(227))
+        save_flat_variables(unet, os.path.join(work, "weights", "diffpure_unet.npz"))
+        del unet
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        fused_sign_update.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        path = tdp.run_diffpure(data, images, batchsize=DEFENSE_IMAGES, device=dev)
+        torch.cuda.synchronize()
+        diffpure_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches["diffpure"] = fused_sign_update.launches
+        with open(path) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == DEFENSE_IMAGES + 1, f"run_diffpure wrote {rows}")
+        print(f"[22b defense] run_diffpure, the full UNet ({write_s:.2f} s to seed it on the card "
+              f"and write diffpure_unet.npz), resnet101, sde t* 150 at 256², batch "
+              f"{DEFENSE_IMAGES}: {diffpure_s:.3f} s with the load and PNG reads (150 UNet "
+              f"forwards), peak memory {peak:.2f} GiB; predictions {rows[1:]} on {smi}")
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on phase 9's PNGs; NRP's purified PNGs scored by --eval
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        os.chdir(work)
+        try:
+            data = os.path.join(work, "data")
+            names, _ = write_cli_data(data, DEFENSE_IMAGES)
+            images = os.path.join(data, "images")
+            for defense in ("at", "hgd", "rs", "nrp", "diffpure"):
+                out = io.StringIO()
+                fused_sign_update.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    trun.main(["--defense", defense, "--input_dir", data, "--output_dir", images,
+                               "--purified_dir", os.path.join(work, "purified"),
+                               "--batchsize", str(DEFENSE_IMAGES)])
+                secs = time.perf_counter() - t0
+                n = launches[f"cli_{defense}"] = fused_sign_update.launches
+                last = out.getvalue().strip().splitlines()[-1]
+                print(f"[22c defense] --defense {defense} ({secs:.2f} s, {n} launches): {last}")
+                if defense == "nrp":
+                    check(last.startswith("Purified images written to") and
+                          "python -m transferattack_torch.main --eval" in last, f"nrp: {last!r}")
+                    out = io.StringIO()
+                    with contextlib.redirect_stdout(out):
+                        cli.main(["--eval", "--eval_models", "resnet50", "--input_dir", data,
+                                  "--output_dir", os.path.join(work, "purified")])
+                    scored = re.findall(r"^resnet50: (\d+\.\d)$", out.getvalue(), re.M)
+                    check(len(scored) == 1, f"--eval on the purified PNGs: {out.getvalue()!r}")
+                    print(f"[22c defense] --eval --eval_models resnet50 on NRP's purified PNGs: "
+                          f"resnet50: {scored[0]}")
+                else:
+                    check(re.fullmatch(rf"{defense.upper()} ASR: \d+\.\d\d%", last) is not None,
+                          f"{defense}: {last!r}")
+        finally:
+            os.chdir(cwd)
+    check(not any(launches.values()), f"the defenses launched the update kernel: {launches}")
+    return launches
+
 
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
@@ -3226,7 +3457,12 @@ def main() -> None:
 
     # 21. the training entry points and DiffAttack's Stable Diffusion backend
     sd_launches_ = run_sd_family(dev, smi)
+    torch.cuda.empty_cache()
     phase_seconds(21, clock)
+
+    # 22. the defense suite, its CLI and its bench
+    defense_launches_ = run_defense_family(dev, smi)
+    phase_seconds(22, clock)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -3249,6 +3485,7 @@ def main() -> None:
          "launches_generation": generation_launches_,
          "launches_diffusion": diffusion_launches_,
          "launches_sd": sd_launches_,
+         "launches_defense": defense_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

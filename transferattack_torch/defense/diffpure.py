@@ -25,11 +25,17 @@ The UNet: ``$TA_TPU_WEIGHTS_DIR/<ckpt>.npz`` through the weights bridge
 recorded as ``diffpure_unet`` and a seeded init (a torch generator seeded
 9) of the tiny configuration ``_TINY_UNET``, whose zero-initialised output
 layer makes ε exactly 0; ``unet_config`` picks the configuration
-(``{}``: the full one).  ``run_diffpure`` and the defense CLI are not
-ported yet.
+(``{}``: the full one).
+
+``run_diffpure`` resizes each batch of adversarial PNGs to the native side,
+``NATIVE_SIDE`` (256) with weights or 64 in the fallback, as
+``jax.image.resize`` does (antialiased when it shrinks), purifies it, resizes
+it back, classifies it with ``make_model(model_name)`` (ResNet-101) and
+writes the prediction CSV.
 """
 from __future__ import annotations
 
+import itertools
 import warnings
 from typing import Optional, Sequence
 
@@ -37,9 +43,12 @@ import numpy as np
 import torch
 
 from ..attack import draw
-from ..models import aux_path, load_npz, nhwc, record_fallback, resolve_device, weights_root
+from ..models import (aux_path, load_npz, make_model, nhwc, record_fallback, resolve_device,
+                      weights_root)
+from ..ops.image import resize
 from ..utils.bridge import load_flat_variables
 from .gd_unet import GuidedDiffusionUNet, init_unet
+from .scoring import classify_dir
 
 # the same architecture, tiny: the weightless fallback and the tests
 _TINY_UNET = dict(model_channels=32, num_res_blocks=1, attention_ds=(2,), channel_mult=(1, 2),
@@ -54,6 +63,7 @@ class DiffPure:
     forwards."""
 
     T = 1000  # discrete timesteps
+    NATIVE_SIDE = 256  # the ImageNet-256 UNet's side
     BETA_MIN, BETA_MAX = 0.1, 20.0  # RevVPSDE's continuous endpoints
 
     def __init__(self, t_star: int = 150, ckpt: str = "diffpure_unet",
@@ -78,16 +88,17 @@ class DiffPure:
         self.log_betas = np.log(betas).astype(f32)
 
         path = aux_path(ckpt)
-        if unet_config is not None:
-            unet = GuidedDiffusionUNet(**unet_config)
-        else:
-            unet = GuidedDiffusionUNet(**({} if path else _TINY_UNET))
+        config = unet_config if unet_config is not None else ({} if path else _TINY_UNET)
         if path:
+            with torch.device("meta"):  # every parameter is loaded next: no host init
+                unet = GuidedDiffusionUNet(**config)
+            unet = unet.to_empty(device=self.device)
             load_flat_variables(unet, load_npz(path))
         else:
             record_fallback("diffpure_unet")
             warnings.warn(f"DiffPure: {ckpt}.npz not found under {weights_root()}; random-init "
                           "UNet used (its output layer is zero, so ε is 0).")
+            unet = GuidedDiffusionUNet(**config)
             init_unet(unet, torch.Generator().manual_seed(9))
         self.fallback_weights = path is None
         self.unet = unet.eval().requires_grad_(False).to(self.device,
@@ -187,3 +198,34 @@ class DiffPure:
         return self.purify_ddpm(x, generator, noises)
 
     __call__ = purify
+
+
+def run_diffpure(input_dir: str, output_dir: str, batchsize: int = 4, t_star: int = 150,
+                 model_name: str = "resnet101", out_csv: str = "diffpure_predictions.csv",
+                 seed: int = 0, diffusion_type: str = "sde", device="cuda",
+                 noises: Optional[Sequence[Sequence]] = None) -> str:
+    """Purify, classify, write the prediction CSV (``diffpure.py:76-86``);
+    returns its path.  Each batch is resized to the native 256² with weights
+    or to 64² in the fallback (the tiny UNet attends at a downsample of 2:
+    12,544 tokens at 224²), purified with a generator seeded ``seed`` (one
+    draw a batch; ``noises``: one sequence of the sampler's noises a batch),
+    resized back and classified in [0, 1].  The
+    shipped driver's defaults: ``sde``, ResNet-101, t* 150."""
+    dev = resolve_device(device)
+    dp = DiffPure(t_star=t_star, diffusion_type=diffusion_type, device=dev)
+    surrogate = make_model(model_name, device=dev)
+    native = DiffPure.NATIVE_SIDE if not dp.fallback_weights else 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batches = itertools.count()
+
+    def classify(x):
+        side = x.shape[1]
+        b = next(batches)
+        if side == native:
+            purified = dp(x, gen, None if noises is None else noises[b])
+        else:
+            purified = resize(dp(resize(x, native, native), gen,
+                                 None if noises is None else noises[b]), side, side)
+        return surrogate.apply(purified).argmax(-1)
+
+    return classify_dir(classify, input_dir, output_dir, batchsize, out_csv, dev)

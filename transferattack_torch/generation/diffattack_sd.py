@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..attack import softmax_cross_entropy
 from ..models import load_aux, make_model, resolve_device, weights_root
-from ..ops.image import scale_and_translate
+from ..ops.image import resize
 from .aim import DiffAttackGD, adamw
 from .sd_text import EOS, MAX_TOKENS, CLIPTextEncoder, SDTokenizer
 from .sd_unet import SDUNet
@@ -41,13 +41,6 @@ def sd_alphas_cumprod(T: int = 1000, beta_start: float = 0.00085,
     betas = np.linspace(np.float32(beta_start ** 0.5), np.float32(beta_end ** 0.5), T,
                         dtype=np.float32) ** 2
     return np.cumprod(np.float32(1) - betas, dtype=np.float32)
-
-
-def resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """``jax.image.resize(x, (B, height, width, C), "bilinear")`` of NHWC
-    ``x``: antialiased when it shrinks."""
-    return scale_and_translate(x, (height, width), (height / x.shape[1], width / x.shape[2]),
-                               (0.0, 0.0))
 
 
 class SDDiffAttack:

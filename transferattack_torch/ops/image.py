@@ -12,7 +12,8 @@ because the TPU's gathers faulted, and are not ported.
 ``jax.image.scale_and_translate(..., method="linear")``: one (in, out)
 triangle-kernel weight matrix per spatial axis, widened by ``1/scale`` when
 it shrinks (JAX's ``antialias=True``), applied as two products; the scale
-may be one per image.
+may be one per image.  :func:`resize` is ``jax.image.resize(...,
+"bilinear")`` on it (DiffAttack's SD backend, HGD's DUNet, DiffPure's runner).
 
 IDAA's displacement fields (:func:`homography_field`, :func:`tps_field`,
 :func:`fisheye_field`, :func:`gaussian_blur_sep` of a noise field) are
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -103,17 +104,20 @@ def rotate_quarter_then(x: Tensor, angle_deg: float) -> Tensor:
 
 
 def weight_matrix(in_size: int, out_size: int, scale: Scalar, translation: Scalar,
-                  device=None) -> Tensor:
+                  device=None, inv_scale: Optional[float] = None) -> Tensor:
     """(in, out) linear-resampling weights of
     ``jax.image.scale_and_translate`` along one axis (JAX's
     ``compute_weight_mat`` with the triangle kernel and ``antialias=True``):
     output pixel o samples input coordinate ``(o + 0.5 - t) / s - 0.5``
     with a triangle ``max(1/s, 1)`` pixels wide, weights normalized over
     the input, and zero where the sample falls outside the input.  A
-    ``scale`` and ``translation`` of shape (B,) give (B, in, out)."""
+    ``scale`` and ``translation`` of shape (B,) give (B, in, out).  ``1/s``
+    is taken in fp32, as ``scale_and_translate`` takes it, unless
+    ``inv_scale`` gives it (``jax.image.resize`` divides in float64)."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
     translation = torch.as_tensor(translation, dtype=torch.float32, device=device)
-    inv_scale = 1.0 / scale
+    inv_scale = (1.0 / scale if inv_scale is None
+                 else torch.as_tensor(inv_scale, dtype=torch.float32, device=scale.device))
     kernel_scale = torch.clamp(inv_scale, min=1.0)
     sample_f = ((torch.arange(out_size, dtype=torch.float32, device=scale.device) + 0.5)
                 * inv_scale[..., None] - (translation * inv_scale)[..., None] - 0.5)
@@ -138,9 +142,22 @@ def scale_and_translate(x: Tensor, out_hw: Sequence[int], scale: Sequence[Scalar
     ``vmap`` of it)."""
     wh = weight_matrix(x.shape[1], out_hw[0], scale[0], translation[0], x.device)
     ww = weight_matrix(x.shape[2], out_hw[1], scale[1], translation[1], x.device)
+    return _resample(x, wh, ww)
+
+
+def _resample(x: Tensor, wh: Tensor, ww: Tensor) -> Tensor:
     out = torch.einsum("bhwc,hp->bpwc" if wh.ndim == 2 else "bhwc,bhp->bpwc", x, wh.to(x.dtype))
     return torch.einsum("bpwc,wq->bpqc" if ww.ndim == 2 else "bpwc,bwq->bpqc", out,
                         ww.to(x.dtype))
+
+
+def resize(x: Tensor, height: int, width: int) -> Tensor:
+    """``jax.image.resize(x, (B, height, width, C), "bilinear")`` of NHWC
+    ``x``: antialiased when it shrinks, the scale's inverse taken in
+    float64 and rounded once, as JAX takes it."""
+    wh, ww = (weight_matrix(n, m, m / n, 0.0, x.device, inv_scale=1.0 / (m / n))
+              for n, m in ((x.shape[1], height), (x.shape[2], width)))
+    return _resample(x, wh, ww)
 
 
 # ---------------------------------------------------------------------------

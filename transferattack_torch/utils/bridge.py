@@ -49,6 +49,9 @@ This module inverts the rules of ``transferattack_tpu/utils/convert.py``
   A transposed conv's JAX kernel (kh, kw, out, in) takes the 4-D rule to
   torch's ``ConvTranspose2d`` (in, out, kh, kw) with no flip: Flax's
   ``transpose_kernel`` flips it itself;
+* the defenses: HGD's DUNet's ``fwd_I_J``/``back_I_J`` → ``fwd.I.J``/``back.I.J``
+  (the reference's ``Denoise``), NRP's ``RRDB_trunk_I`` → ``RRDB_trunk.I``
+  (ESRGAN's);
 * the guided-diffusion UNet (``defense/gd_unet.py``): ``input_blocks_N_M``
   and ``output_blocks_N_M`` → ``input_blocks.N.M``, and ``middle_block``,
   ``time_embed``, ``out``, ``in_layers``, ``emb_layers``, ``out_layers``
@@ -68,8 +71,9 @@ and timm's; Visformer's are the JAX model's own, see its module), so a
 bridge.
 
 The way back, :func:`save_flat_variables`, writes a module's ``state_dict``
-in that flat layout (what the training entry points save), each key held
-to give back its torch name and value through the rules above.
+in that flat layout (what the training entry points save, HGD's converter,
+a seeded guided-diffusion UNet), each key held to give back its torch name
+and value through the rules above.
 """
 from __future__ import annotations
 
@@ -87,7 +91,8 @@ _INDEXED = re.compile(r"(layer\d+|features|classifier|blocks|blocks_token_only|s
                       r"|repeat|repeat_[12]|branch\d|members|enc|dec|layers|fc\d+"
                       r"|encoder|decoder|bottle_neck|conv_block|z_encoder|final"
                       r"|time_embed|middle_block|in_layers|emb_layers|out_layers|out"
-                      r"|down_blocks|up_blocks|resnets|attentions|transformer_blocks|to_out)_(\d+)")
+                      r"|down_blocks|up_blocks|resnets|attentions|transformer_blocks|to_out"
+                      r"|RRDB_trunk)_(\d+)")
 _STAGED = re.compile(r"(layers|transformers)_(\d+)_(?:blocks_(\d+)|(downsample|pool))")
 _RENAMED = {"downsample_conv": ["downsample", "0"], "downsample_bn": ["downsample", "1"],
             "patch_embed": ["patch_embed", "proj"], "patch_norm": ["patch_embed", "norm"]}
@@ -104,8 +109,11 @@ _GEN_PAIR = re.compile(r"(block[123f]|upsampl\d)_(conv|bn)")
 _GEN_PADDED = ("block1", "blockf")
 _RESBLOCK = re.compile(r"resblock\d+")
 _RESBLOCK_CHILD = {"conv1": "1", "bn1": "2", "conv2": "6", "bn2": "7"}
-# the guided-diffusion UNet's blocks: ``input_blocks_4_1`` → ``input_blocks.4.1``
-_UNET_BLOCK = re.compile(r"(input_blocks|output_blocks)_(\d+)_(\d+)")
+# two indices in one name: the guided-diffusion UNet's blocks (``input_blocks_4_1``
+# → ``input_blocks.4.1``) and HGD's DUNet's (``fwd_2_0`` → ``fwd.2.0``)
+_DOUBLE_NAMES = ("input_blocks", "output_blocks", "fwd", "back")
+_DOUBLE_INDEXED = re.compile(rf"({'|'.join(_DOUBLE_NAMES)})_(\d+)_(\d+)")
+_UNET_ATTN_DENSE = ("qkv", "proj_out")  # an attention block's Conv1d layers
 _UNET_CONV1D = re.compile(r"(input_blocks|output_blocks)_\d+_\d+|middle_block_\d+")
 # the Stable Diffusion stack's joined names (diffusers' Sequentials)
 _SD_JOINED = {"net_0_proj": ["net", "0", "proj"],
@@ -118,7 +126,7 @@ def _module_path(path) -> list:
     for p in path:
         staged, indexed = _STAGED.fullmatch(p), _INDEXED.fullmatch(p)
         dense, pair = _DENSE_LAYER.fullmatch(p), _GEN_PAIR.fullmatch(p)
-        unet = _UNET_BLOCK.fullmatch(p)
+        double = _DOUBLE_INDEXED.fullmatch(p)
         if p in _RENAMED:
             parts += _RENAMED[p]
         elif p in _SD_JOINED:
@@ -139,8 +147,8 @@ def _module_path(path) -> list:
             parts += [pair.group(1), str(first + (pair.group(2) == "bn"))]
         elif p in _RESBLOCK_CHILD and _RESBLOCK.fullmatch(prev):
             parts += ["block", _RESBLOCK_CHILD[p]]
-        elif unet:
-            parts += list(unet.groups())
+        elif double:
+            parts += list(double.groups())
         elif indexed:
             parts += [indexed.group(1), indexed.group(2)]
         else:
@@ -168,7 +176,7 @@ def torch_layout(jax_key: str, value: np.ndarray) -> np.ndarray:
     if leaf == "kernel":
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        if value.ndim == 2 and len(path) >= 2 and path[-1] in ("qkv", "proj_out") \
+        if value.ndim == 2 and len(path) >= 2 and path[-1] in _UNET_ATTN_DENSE \
                 and _UNET_CONV1D.fullmatch(path[-2]):
             return value.T[:, :, None]  # a UNet attention's Dense -> Conv1d (O, I, 1)
         if value.ndim == 2:
@@ -228,6 +236,7 @@ _CONVS = (nn.Conv2d, nn.ConvTranspose2d)
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)
 _GEN_BLOCK = re.compile(r"block[123f]|upsampl\d")
 _RESBLOCK_JAX = {v: k for k, v in _RESBLOCK_CHILD.items()}
+_RENAMED_JAX = {tuple(v): k for k, v in _RENAMED.items()}
 
 
 def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
@@ -236,8 +245,11 @@ def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
     out, i = [], 0
     while i < len(parts):
         p, rest = parts[i], parts[i + 1:]
-        if p in ("downsamplers", "upsamplers", "net") and rest[:2] in (["0", "conv"],
-                                                                    ["0", "proj"]):
+        if tuple(parts[i:i + 2]) in _RENAMED_JAX:  # ResNet's downsample.0/.1, a patch embed
+            out.append(_RENAMED_JAX[tuple(parts[i:i + 2])])
+            i += 2
+        elif p in ("downsamplers", "upsamplers", "net") and rest[:2] in (["0", "conv"],
+                                                                      ["0", "proj"]):
             out.append("_".join([p, *rest[:2]]))
             i += 3
         elif _GEN_BLOCK.fullmatch(p) and rest and rest[0].isdigit():
@@ -248,6 +260,9 @@ def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
         elif _RESBLOCK.fullmatch(p) and rest[:1] == ["block"] and len(rest) > 1:
             out += [p, _RESBLOCK_JAX[rest[1]]]
             i += 3
+        elif p in _DOUBLE_NAMES and len(rest) > 1 and rest[0].isdigit() and rest[1].isdigit():
+            out.append(f"{p}_{rest[0]}_{rest[1]}")
+            i += 3
         elif rest and rest[0].isdigit():
             out.append(f"{p}_{rest[0]}")
             i += 2
@@ -257,11 +272,16 @@ def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
     return out
 
 
-def _jax_leaf(module: nn.Module, name: str, value: np.ndarray):
-    """(collection, leaf, value in JAX's layout) of ``module``'s own
-    ``name``; None for BatchNorm's step counter."""
+def _jax_leaf(module: nn.Module, owner: str, name: str, value: np.ndarray):
+    """(collection, leaf, value in JAX's layout) of ``name`` of ``module``,
+    the module at path ``owner``; None for BatchNorm's step counter."""
     if isinstance(module, _CONVS) and name == "weight":
         return "params", "kernel", value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if isinstance(module, nn.Conv1d) and owner.rpartition(".")[2] in _UNET_ATTN_DENSE \
+            and name in ("weight", "bias"):
+        # a UNet attention's Conv1d (O, I, 1), a Dense (I, O) in JAX
+        return ("params", "kernel", value[:, :, 0].T) if name == "weight" else \
+            ("params", "bias", value)
     if isinstance(module, nn.Linear) and name == "weight":
         return "params", "kernel", value.T
     if isinstance(module, (*_CONVS, nn.Linear, *_NORMS)) and name == "bias":
@@ -292,7 +312,7 @@ def state_dict_to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
     for tname, tensor in module.state_dict().items():
         owner, _, leaf = tname.rpartition(".")
         value = tensor.detach().cpu().numpy()
-        rule = _jax_leaf(modules[owner], leaf, value)
+        rule = _jax_leaf(modules[owner], owner, leaf, value)
         if rule is None:
             continue
         collection, jleaf, jvalue = rule
