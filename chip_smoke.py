@@ -223,6 +223,20 @@ random weights.  Phases:
     card and written as ``diffpure_unet.npz``; (c) the defense CLI for all
     five on 4 of phase 9's PNGs, each printing its ASR line, and NRP's
     purified PNGs scored by ``--eval``; 0 update-kernel launches throughout.
+23. the weights converter and the scripts: (a) seeded reference-named
+    ``state_dict``s of ResNet-50, MobileNet-V2, DenseNet-121 and ViT-B/16
+    written as ``.pth`` and converted by ``utils.convert --all`` (host
+    seconds a model), each then built by ``make_model`` on the card with no
+    fallback recorded, its fp32 logits (TF32 off) within ``1e-6·max|ref|``
+    of the same module loaded straight from the ``state_dict``, and
+    ``--list`` showing them present; (b) the sweep's ``--smoke`` through
+    the CLI on the card with the converted ResNet-50 (10 launches, no
+    fallback); (c) the family bench for MI-FGSM and SSM at batch 32, bf16,
+    its calibration cut to ``TOOLS_TARGET_S`` (printed as ``reduced``);
+    (d) ``profile_vit`` at batch 32 for MI-FGSM and TGR on ViT-B/16, with a
+    ``torch.profiler`` trace; (e) the ASR gate for ``--rows mifgsm
+    --columns cnn`` over the converted weights less the CNN surrogate: every
+    cell SKIP, exit 0.  The ``kernels`` line's row 1 gains ``launches_tools``.
 
 Each phase prints its seconds (``[time]``).  Any failed phase ends the run
 with a non-zero exit.  Without a card it fails
@@ -471,6 +485,10 @@ MARGIN_TOL = 1e-3    # RS: a vote may flip only where the top-two logit margin i
 DUNET_SIDE = 75      # an odd side: the encoder halves it to 38, 19, 10, 5
 RS_IMAGES, RS_N = 8, 1000  # Smooth.predict and certify at the official N
 DEFENSE_IMAGES = 4   # 22b's run_nrp and run_diffpure, 22c's CLI
+# phase 23: the weights converter and the scripts
+CONVERT_MODELS = ("resnet50", "mobilenet_v2", "densenet121", "vit_base_patch16_224")
+CONVERT_TOL = 1e-6   # converted vs straight from the state_dict: max|d| / max|ref|
+TOOLS_TARGET_S = 2.0  # the family bench's and the ViT profile's calibration (10 s in full)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3039,6 +3057,151 @@ def run_defense_family(dev, smi) -> dict:
     return launches
 
 
+def seeded_state_dict(module, seed: int) -> dict:
+    """``module``'s ``state_dict`` (the reference's names) filled from a
+    seed: kernels at lecun-normal scale, norms and statistics off the
+    identity, small biases, tokens and embeddings."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            out[k] = v
+            continue
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean"):
+            a = rng.normal(0, 0.05, shape)
+        elif k.endswith("weight") and len(shape) >= 2:
+            a = rng.normal(0, 1 / np.sqrt(np.prod(shape[1:])), shape)
+        elif k.endswith("weight"):
+            a = rng.normal(1.0, 0.1, shape)
+        else:
+            a = rng.normal(0, 0.05, shape)
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def run_tools_family(dev, smi) -> dict:
+    """Phase 23; returns the update-kernel launches of the sweep's attack,
+    and of one call of each bench and profile case."""
+    from transferattack_torch.models import build_module
+    from transferattack_torch.scripts import asr_gate, bench_families, profile_vit, sweep
+    from transferattack_torch.utils import convert
+    from transferattack_torch.utils.weights_manifest import fallback_weights_used, reset_fallbacks
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as work, weights_dir(os.path.join(work, "weights")):
+        # (a) conversion, then the converted weights on the card
+        downloads = os.path.join(work, "downloads")
+        os.makedirs(downloads)
+        states = {}
+        for i, name in enumerate(CONVERT_MODELS):
+            states[name] = seeded_state_dict(build_module(name).backbone, seed=230 + i)
+            torch.save(states[name], os.path.join(downloads, f"{name}.pth"))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            done = convert.convert_all(downloads)
+        all_s = time.perf_counter() - t0
+        check(sorted(n for n, _, _ in done) == sorted(CONVERT_MODELS) and "✗" not in
+              out.getvalue().split("# weights manifest")[0], f"--all: {out.getvalue()[:2000]}")
+        for name, path, secs in done:
+            print(f"[23a tools] utils.convert --all: {name} → {os.path.basename(path)} "
+                  f"({os.path.getsize(path) / 2**20:.1f} MiB) in {secs:.2f} host s")
+        print(f"[23a tools] --all over {len(done)} checkpoints: {all_s:.2f} host s")
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        for i, name in enumerate(CONVERT_MODELS):
+            reset_fallbacks()
+            converted = make_model(name, device=dev)
+            check(fallback_weights_used() == [], f"{name}: fallback {fallback_weights_used()}")
+            straight = build_module(name)
+            straight.backbone.load_state_dict(states[name])
+            straight = straight.eval().to(device=dev, memory_format=torch.channels_last)
+            size = converted.input_size
+            x = torch.from_numpy(np.random.RandomState(240 + i).rand(2, size, size, 3)
+                                 .astype(np.float32)).to(dev)
+            with torch.inference_mode():
+                out_c, ref = converted.apply(x), straight(x)
+            err, rel = errors(out_c, ref)
+            check(rel <= CONVERT_TOL, f"{name}: converted vs state_dict max|d|/max|ref| = {rel}")
+            print(f"[23a tools] {name}: make_model on the card, no fallback; fp32 logits "
+                  f"{'bit-equal to' if err == 0 else f'{rel:.3e} of max from'} the module loaded "
+                  f"straight from the state_dict (bound {CONVERT_TOL:g})")
+            del converted, straight
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del states
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            convert.main(["--list"])
+        listed = out.getvalue()
+        check(all(f" ✓ {n} " in listed for n in CONVERT_MODELS), f"--list: {listed[:1500]}")
+        print(f"[23a tools] --list: {listed.splitlines()[0]}")
+
+        # (b) the sweep's --smoke through the CLI, the converted ResNet-50 in place
+        fused_sign_update.launches = 0
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = sweep.run_smoke(os.path.join(work, "smoke"), device="cuda",
+                                  cli=sweep.inprocess_cli)
+        torch.cuda.synchronize()
+        smoke_s = time.perf_counter() - t0
+        n = launches["sweep"] = fused_sign_update.launches
+        check(rec["ok"] and n == 10 and "resnet50" not in rec["fallback_weights_used"],
+              f"sweep --smoke: {rec}, {n} launches")
+        print(f"[23b tools] sweep --smoke ({smoke_s:.2f} s with the eval): {json.dumps(rec)}; "
+              f"{n} update-kernel launches; attack_meta.json fallbacks "
+              f"{rec['fallback_weights_used']}")
+
+        # (c) the family bench, its calibration cut
+        print(f"[23c tools] bench_families --only mifgsm,ssm --batch 32: reduced, calibrated to "
+              f"{TOOLS_TARGET_S:g} s of calls (10 s in full), on {smi}")
+        for line in bench_families.main(["--only", "mifgsm,ssm", "--batch", "32", "--reps", "2",
+                                         "--target_s", str(TOOLS_TARGET_S)]):
+            check("error" not in line and line["img_per_sec"] > 0 and line["launches"] == 10,
+                  f"bench_families: {line}")
+            launches[f"bench_{line['attack']}"] = line["launches"]
+            print(f"[23c tools] {line['attack']}: {line['img_per_sec']} img/s over {line['reps']} "
+                  f"calls, cold call {line['compile_s']} s, {line['launches']} launches a call, "
+                  f"peak memory {line['peak_gib']} GiB")
+        torch.cuda.empty_cache()
+
+        # (d) the ViT profile at batch 32, with a trace
+        trace_dir = os.path.join(work, "traces")
+        for line in profile_vit.main(["--batches", "32", "--target_s", str(TOOLS_TARGET_S),
+                                      "--trace-dir", trace_dir]):
+            check("error" not in line and line["launches"] == 10 and os.path.getsize(
+                line["trace"]) > 0, f"profile_vit: {line}")
+            launches[f"profile_{line['case'].split('/')[0]}"] = line["launches"]
+            print(f"[23d tools] profile_vit {line['case']} batch {line['batch']}: "
+                  f"{line['ms_per_iter']} ms an iteration, {line['img_per_sec']} img/s over "
+                  f"{line['reps']} calls (reduced: calibrated to {TOOLS_TARGET_S:g} s), peak "
+                  f"{line['peak_gib']} GiB, trace {os.path.getsize(line['trace']) / 2**20:.1f} "
+                  f"MiB on {smi}")
+        torch.cuda.empty_cache()
+
+        # (e) the gate over the converted weights less the CNN surrogate
+        gate_weights = os.path.join(work, "gate_weights")
+        os.makedirs(gate_weights)
+        for name in CONVERT_MODELS[1:]:
+            os.symlink(os.path.join(work, "weights", f"{name}.npz"),
+                       os.path.join(gate_weights, f"{name}.npz"))
+        out = io.StringIO()
+        with weights_dir(gate_weights), contextlib.redirect_stdout(out):
+            rc = asr_gate.main(["--rows", "mifgsm", "--columns", "cnn", "--input_dir",
+                                os.path.join(work, "smoke", "data"),
+                                "--out_root", os.path.join(work, "gate")])
+        lines = out.getvalue().splitlines()
+        check(rc == 0 and sum(ln.startswith("[SKIP]") for ln in lines) == 4,
+              f"asr_gate: rc {rc}, {lines}")
+        print(f"[23e tools] asr_gate --rows mifgsm --columns cnn (no resnet50.npz): exit {rc}; "
+              + "; ".join(ln for ln in lines if ln.startswith("ASR gate: 0 ok")))
+    return launches
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -3462,7 +3625,12 @@ def main() -> None:
 
     # 22. the defense suite, its CLI and its bench
     defense_launches_ = run_defense_family(dev, smi)
+    torch.cuda.empty_cache()
     phase_seconds(22, clock)
+
+    # 23. the weights converter, the sweep, the family bench, the ViT profile, the gate
+    tools_launches_ = run_tools_family(dev, smi)
+    phase_seconds(23, clock)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -3486,6 +3654,7 @@ def main() -> None:
          "launches_diffusion": diffusion_launches_,
          "launches_sd": sd_launches_,
          "launches_defense": defense_launches_,
+         "launches_tools": tools_launches_,
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

@@ -319,12 +319,23 @@ def test_ens_and_multi_model_defaults():
 
 
 def test_bf16_reaches_the_members():
+    """Under bf16 the members run as JAX's do: JAX casts the ensemble's
+    variables and sets the compute dtype on the ensemble alone, so a member
+    pass is fp32 compute on the bf16-rounded weights, while the mean-logit
+    ensemble stays bf16 (``tests/test_torch_port_bf16.py`` holds both to
+    JAX)."""
     atk = tt.load_attack_class("cwa")(model_name=TOYS, pretrained=False, epoch=1,
                                       compute_dtype="bfloat16", device="cpu")
-    assert all(m.compute_dtype == torch.bfloat16 for m in atk.members)
+    assert atk.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.bfloat16 for p in atk.model.module.parameters())
+    for k, member in enumerate(atk.members):
+        assert member.compute_dtype is None and member.module is not atk.model.module.members[k]
+        for name, p in member.module.named_parameters():
+            ens = dict(atk.model.module.members[k].named_parameters())[name]
+            assert p.dtype == torch.float32 and torch.equal(p, ens.float())
     x = torch.rand(2, 32, 32, 3)
     assert atk.members[0].apply(x).dtype == torch.float32
-    assert next(atk.members[1].module.parameters()).dtype == torch.bfloat16
+    assert atk.model.apply(x).dtype == torch.float32
 
 
 # -- CWA against its raw-torch reference loop ------------------------------

@@ -20,6 +20,7 @@ the JAX package, on the CPU in fp32.
   JAX's.
 """
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -137,13 +138,18 @@ def test_lgv_fallback_jitters_the_base_parameters(weights):
 
 
 def test_lgv_sets_take_the_compute_dtype(weights):
-    atk = tt.load_attack_class("lgv")(model_name="toy_cnn", ckpt_prefix="lgv_toy",
-                                      compute_dtype="bfloat16", device="cpu")
-    assert all(v.dtype == torch.bfloat16 for s in atk.param_sets for v in s.values())
+    """Under bf16, as in JAX: a jittered fallback set is bf16 and runs in
+    bf16; a loaded collection stays fp32 and runs in fp32."""
     x = torch.rand(2, 32, 32, 3)
-    g, _ = atk.get_grad(x, torch.tensor([1, 2]), AttackState(
-        delta=torch.zeros_like(x), momentum=torch.zeros_like(x)), torch.Generator())
-    assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+    state = AttackState(delta=torch.zeros_like(x), momentum=torch.zeros_like(x))
+    for prefix, dtype in (("lgv_toy", torch.float32), ("lgv_none", torch.bfloat16)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            atk = tt.load_attack_class("lgv")(model_name="toy_cnn", ckpt_prefix=prefix,
+                                              compute_dtype="bfloat16", device="cpu")
+        assert all(v.dtype == dtype for s in atk.param_sets for v in s.values())
+        g, _ = atk.get_grad(x, torch.tensor([1, 2]), state, torch.Generator())
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
 
 
 # -- SASD-WS ----------------------------------------------------------------

@@ -13,13 +13,14 @@ kernel reads.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from .models import resolve_device, resolve_model
+from .models import Surrogate, resolve_device, resolve_model, round_variables_to_bf16
 from .ops.fused_update import fused_sign_update
 from .utils import img_max, img_min
 
@@ -86,13 +87,31 @@ def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     return -(logp * onehot).sum(dim=-1)
 
 
+def member_passes(members: Sequence[Surrogate]) -> Tuple[Surrogate, ...]:
+    """An ensemble's members as an attack takes passes through one of them
+    alone under a low-precision ``compute_dtype``.  JAX casts the ensemble's
+    variables and sets the compute dtype on the ensemble only, so a member
+    alone runs fp32 activations on bf16-rounded weights, while the
+    mean-logit ensemble runs bf16 on them.  A module holds one dtype, so
+    each member gets an fp32 copy of its module with its variables rounded
+    to bf16 (:func:`~transferattack_torch.models.round_variables_to_bf16`,
+    which also gives BatchNorm the multiplier of jitted Flax)."""
+    out = []
+    for s in members:
+        module = copy.deepcopy(s.module).float()
+        round_variables_to_bf16(module)
+        out.append(dataclasses.replace(s, module=module, compute_dtype=None))
+    return tuple(out)
+
+
 class Attack:
     """Base class for transfer attacks.
 
     Defaults follow the reference protocol (eps=16/255, alpha=1.6/255,
     epoch=10, untargeted).  ``compute_dtype='bfloat16'`` runs the surrogate
     in bf16, BN buffers included, while delta, momentum and the loss stay
-    fp32; ``None`` is full fp32.  ``device`` defaults to ``'cuda'`` and
+    fp32 (an ensemble's members alone: :func:`member_passes`); ``None`` is
+    full fp32.  ``device`` defaults to ``'cuda'`` and
     raises when no card is present.
     """
 
@@ -127,11 +146,11 @@ class Attack:
         self.model = resolve_model(model_name, device=self.device, **model_kwargs)
         self.model.module.eval().requires_grad_(False)
         if self.compute_dtype is not None:
+            if self.model.members:  # a surrogate of its own: a built one may be shared
+                self.model = dataclasses.replace(
+                    self.model, members=member_passes(self.model.members))
             self.model.module.to(self.compute_dtype)
-            # an ensemble's members run in it too when an attack calls one
-            # alone (JAX leaves them at None: fp32 on bf16 weights)
-            for s in (self.model, *self.model.members):
-                s.compute_dtype = self.compute_dtype
+            self.model.compute_dtype = self.compute_dtype
         self.epoch = int(epoch)
         self.eps = float(eps)
         self.alpha = float(alpha)

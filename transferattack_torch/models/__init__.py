@@ -26,6 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.bridge import load_flat_variables
+# one registry of fallbacks, the manifest's, and its weights root
+from ..utils.weights_manifest import (_FALLBACKS, fallback_weights_used,  # noqa: F401
+                                      record_fallback, weights_root)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -34,8 +37,6 @@ INCEPTION_STD = (0.5, 0.5, 0.5)
 
 # name -> (builder() -> nn.Module, input_size, mean, std, sized)
 _MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int, tuple, tuple, bool]] = {}
-# models that were asked for pretrained weights but ran on a random init
-_FALLBACKS: set = set()
 
 
 def register_model(name, input_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD,
@@ -53,15 +54,6 @@ def register_model(name, input_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD,
 
 def list_models() -> List[str]:
     return sorted(_MODEL_REGISTRY)
-
-
-def record_fallback(name: str) -> None:
-    """Note that ``name`` ran on random weights in place of pretrained ones."""
-    _FALLBACKS.add(str(name))
-
-
-def fallback_weights_used() -> List[str]:
-    return sorted(_FALLBACKS)
 
 
 def resolve_device(device) -> torch.device:
@@ -293,28 +285,42 @@ def round_variables_to_bf16(module: nn.Module) -> None:
     and the ``rsqrt`` to bf16 and keeps the product with the scale in fp32
     (it drops a rounding whose result is only widened again).  Here every
     variable is rounded to bf16, and each BatchNorm's weight becomes that
-    multiplier, with variance 1 and eps 0 so that it is applied as it is.
+    multiplier, with a variance and an eps that sum to exactly 1
+    (:func:`unit_bn_denominator`) so that it is applied as it is.
     Each step runs in fp32 and is rounded explicitly, as XLA does it: torch's
     own bf16 ``rsqrt`` on the CPU can miss the nearest bf16 by one step.
     """
-    def bf16(t):  # round to bf16, keep fp32
-        return torch.as_tensor(t, dtype=torch.float32).to(torch.bfloat16).float()
-
     with torch.no_grad():
         for t in module.state_dict().values():
             if t.is_floating_point():
                 t.copy_(t.to(torch.bfloat16))
         for m in module.modules():
             if isinstance(m, nn.BatchNorm2d):
-                inv = bf16(torch.rsqrt(bf16(m.running_var + bf16(m.eps))))
-                m.weight.copy_(inv * m.weight)
-                m.running_var.fill_(1.0)
-                m.eps = 0.0
+                m.weight.copy_(bf16_bn_multiplier(m) * m.weight)
+                unit_bn_denominator(m)
 
 
-def weights_root() -> str:
-    """``$TA_TPU_WEIGHTS_DIR``, else ``./weights``."""
-    return os.environ.get("TA_TPU_WEIGHTS_DIR", os.path.join(os.getcwd(), "weights"))
+# a BatchNorm eps whose complement to 1 is exact in fp32 (torch refuses eps 0)
+_UNIT_EPS = 2.0 ** -12
+
+
+def unit_bn_denominator(bn: nn.BatchNorm2d) -> None:
+    """Make ``sqrt(var + eps)`` of eval-mode ``bn`` exactly 1: variance
+    ``1 - 2^-12`` and eps ``2^-12``, whose fp32 sum is 1."""
+    bn.running_var.fill_(1.0 - _UNIT_EPS)
+    bn.eps = _UNIT_EPS
+
+
+def _bf16(t) -> torch.Tensor:
+    """``t`` rounded to bf16, kept in fp32."""
+    return torch.as_tensor(t, dtype=torch.float32).to(torch.bfloat16).float()
+
+
+def bf16_bn_multiplier(bn: nn.BatchNorm2d) -> torch.Tensor:
+    """``rsqrt(var + eps)`` of eval-mode BatchNorm with bf16 statistics, as
+    jitted Flax computes it (the sum and the ``rsqrt`` rounded to bf16, in
+    fp32 arithmetic); its product with the scale stays fp32."""
+    return _bf16(torch.rsqrt(_bf16(_bf16(bn.running_var) + _bf16(bn.eps))))
 
 
 def aux_path(name: str) -> Optional[str]:
@@ -397,6 +403,18 @@ _ALIASES = {"inc_v3": "inception_v3", "inc_res": "inception_resnet_v2",
             "inc_res_v2": "inception_resnet_v2"}
 
 
+def build_module(name: str, input_size: Optional[int] = None, **kwargs) -> WrappedModel:
+    """The registered model ``name`` with its preprocessing, on the CPU at
+    PyTorch's default init (:func:`make_model` then loads or seeds it)."""
+    if name not in _MODEL_REGISTRY:
+        raise ValueError(f"Unknown model {name!r}; available: {list_models()}")
+    builder, size, mean, std, sized = _MODEL_REGISTRY[name]
+    if input_size is not None:
+        size = input_size
+    backbone = builder(img_size=size, **kwargs) if sized else builder(**kwargs)
+    return WrappedModel(backbone, size, mean, std)
+
+
 def make_model(
     name: str,
     pretrained: bool = True,
@@ -415,13 +433,8 @@ def make_model(
     """
     dev = resolve_device(device)
     name = _ALIASES.get(name, name)
-    if name not in _MODEL_REGISTRY:
-        raise ValueError(f"Unknown model {name!r}; available: {list_models()}")
-    builder, size, mean, std, sized = _MODEL_REGISTRY[name]
-    if input_size is not None:
-        size = input_size
-    backbone = builder(img_size=size, **kwargs) if sized else builder(**kwargs)
-    module = WrappedModel(backbone, size, mean, std)
+    module = build_module(name, input_size, **kwargs)
+    size, backbone = module.preprocess.size, module.backbone
     wpath = aux_path(name) if pretrained else None
     if wpath is not None:
         load_flat_variables(module, load_npz(wpath))

@@ -263,6 +263,29 @@ def _jax_module_path(name: str, modules: Mapping[str, nn.Module]) -> list:
         elif p in _DOUBLE_NAMES and len(rest) > 1 and rest[0].isdigit() and rest[1].isdigit():
             out.append(f"{p}_{rest[0]}_{rest[1]}")
             i += 3
+        elif p in ("layers", "transformers") and len(rest) > 2 and rest[0].isdigit() \
+                and rest[1] == "blocks" and rest[2].isdigit():
+            out.append(f"{p}_{rest[0]}_blocks_{rest[2]}")  # Swin's and PiT's staged blocks
+            i += 4
+        elif p in ("layers", "transformers") and len(rest) > 1 and rest[0].isdigit() \
+                and rest[1] in ("downsample", "pool"):
+            out.append(f"{p}_{rest[0]}_{rest[1]}")
+            i += 3
+        elif p == "features" and len(rest) > 1 and _DENSE_LAYER.fullmatch("_".join(rest[:2])):
+            out.append("_".join(rest[:2]))  # DenseNet's denseblockI.denselayerJ
+            i += 3
+        elif p == "features" and rest and _DENSE_TOP.fullmatch(rest[0]):
+            out.append(rest[0])  # DenseNet's transitionI, conv0, norm0, norm5
+            i += 2
+        elif len(rest) > 1 and rest[0].isdigit() and rest[1] in ("0", "1") and type(
+                modules.get(".".join(parts[:i + 2]))).__name__ == "ConvBNReLU":
+            # MobileNetV2's ConvBNReLU: its conv and BN as named children
+            out += [f"{p}_{rest[0]}", "conv" if rest[1] == "0" else "bn"]
+            i += 3
+        elif p == "conv" and rest and rest[0].isdigit() and isinstance(
+                modules.get(".".join(parts[:i + 2])), nn.BatchNorm2d):
+            out.append(f"bn_{int(rest[0]) - 1}")  # MobileNetV2's projection BN
+            i += 2
         elif rest and rest[0].isdigit():
             out.append(f"{p}_{rest[0]}")
             i += 2
@@ -294,7 +317,12 @@ def _jax_leaf(module: nn.Module, owner: str, name: str, value: np.ndarray):
         return None
     if isinstance(module, nn.Embedding) and name == "weight":
         return "params", "embedding", value
-    if name == "position_embedding":  # CLIP's (tokens, width) parameter, as it is
+    if name not in ("weight", "bias") and name in dict(module.named_parameters(recurse=False)):
+        # a free parameter (class and distillation tokens, position
+        # embeddings, CLIP's too, Swin's relative position bias, CaiT's
+        # LayerScale), as it is
+        if name.startswith("pos_embed") and value.ndim == 4:
+            return "params", name, value.transpose(0, 2, 3, 1)  # (1, C, H, W) -> (1, H, W, C)
         return "params", name, value
     raise ValueError(f"no writer rule for {name!r} of {type(module).__name__}")
 
@@ -304,9 +332,11 @@ def state_dict_to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
     :func:`flat_to_state_dict`: Conv and ConvTranspose weights to HWIO
     ``kernel``s, Linear weights to (I, O), norm weights to ``scale``,
     BatchNorm statistics under ``batch_stats``, an embedding table to
-    ``embedding``, CLIP's ``position_embedding`` as it is.  Raises on a module type it
-    has no rule for, and on a key whose torch name or value the bridge
-    would not give back."""
+    ``embedding``, a free parameter (tokens, position embeddings) as it is,
+    a 4-D position embedding to (1, H, W, C); module paths as JAX's models
+    name them (DenseNet's, MobileNetV2's, Swin's and PiT's included).
+    Raises on a module type it has no rule for, and on a key whose torch
+    name or value the bridge would not give back."""
     modules = dict(module.named_modules())
     flat: Dict[str, np.ndarray] = {}
     for tname, tensor in module.state_dict().items():
