@@ -237,10 +237,25 @@ random weights.  Phases:
     ``torch.profiler`` trace; (e) the ASR gate for ``--rows mifgsm
     --columns cnn`` over the converted weights less the CNN surrogate: every
     cell SKIP, exit 0.  The ``kernels`` line's row 1 gains ``launches_tools``.
+24. resume and the data-parallel runner: (a) the main path through
+    ``Attack.call_resumable`` in segments of 3 iterations, and a run stopped
+    after its second segment's checkpoint and resumed, each bit for bit the
+    uninterrupted call (or within the distance between two uninterrupted
+    calls, printed first), 10 launches, the checkpoint's MiB and the ms to
+    save one; (b) the CLI, targeted MI-FGSM, 300 iterations, batch 32, with
+    ``--checkpoint_every 50`` in a subprocess killed (SIGKILL) once its first
+    checkpoint exists, then run again: its PNGs byte for byte those of an
+    uninterrupted run, ``_ckpt`` gone, the launches of each run (300, and
+    300 less the step it resumed at); (c) ``ShardedAttackRunner`` on NCCL at
+    a world of 1: the main path bit for bit the attack's, 10 launches, its
+    img/s beside phase 5's; the sharded eval's ASR that of the plain eval.
+    The ``kernels`` line's row 1 gains ``launches_parallel``.
 
 Each phase prints its seconds (``[time]``).  Any failed phase ends the run
 with a non-zero exit.  Without a card it fails
-at once.  The last line is the JSON summary.
+at once.  Before the ``kernels`` line a ``summary`` JSON line holds the
+main path's and the bench's img/s and each phase's seconds; the last line
+is the JSON ``ok`` line.
 """
 from __future__ import annotations
 
@@ -253,7 +268,10 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
+import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -262,11 +280,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 import transferattack_torch as tt
 from transferattack_torch import bench
+from transferattack_torch import attack as tattack
 from transferattack_torch import main as cli
 from transferattack_torch.attack import Attack, softmax_cross_entropy
 from transferattack_torch.config import official_defaults
@@ -296,7 +316,8 @@ from transferattack_torch.ops.fused_update import (
 from transferattack_torch.scripts.bench_png import decode_ms
 from transferattack_torch.utils import (cnn_model_paper, generation_target_classes,
                                         vit_model_paper)
-from transferattack_torch.utils.data import load_image, save_images
+from transferattack_torch.parallel import ShardedAttackRunner
+from transferattack_torch.utils.data import AdvDataset, load_image, save_images
 from transferattack_torch.utils.timing import bound_ms, card, median_ms
 
 REPO = Path(__file__).resolve().parent
@@ -489,6 +510,9 @@ DEFENSE_IMAGES = 4   # 22b's run_nrp and run_diffpure, 22c's CLI
 CONVERT_MODELS = ("resnet50", "mobilenet_v2", "densenet121", "vit_base_patch16_224")
 CONVERT_TOL = 1e-6   # converted vs straight from the state_dict: max|d| / max|ref|
 TOOLS_TARGET_S = 2.0  # the family bench's and the ViT profile's calibration (10 s in full)
+# phase 24: segments of the main path; the CLI's targeted run and its segments
+RESUME_EVERY = 3
+CLI_RESUME_EPOCH, CLI_RESUME_EVERY, CLI_RESUME_IMAGES = 300, 50, 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -3202,6 +3226,197 @@ def run_tools_family(dev, smi) -> dict:
     return launches
 
 
+def resume_cli(work: str) -> dict:
+    """24b in ``work``: a targeted MI-FGSM run of ``CLI_RESUME_EPOCH``
+    iterations through the CLI, uninterrupted, then in a subprocess with
+    ``--checkpoint_every`` killed once its first checkpoint exists and run
+    again to its end.  Returns the launches and the data's paths."""
+    data = os.path.join(work, "data")
+    rng = np.random.RandomState(24)
+    names = [f"img_{i:04d}.png" for i in range(CLI_RESUME_IMAGES)]
+    save_images(os.path.join(data, "images"),
+                rng.rand(CLI_RESUME_IMAGES, 224, 224, 3).astype(np.float32), names)
+    with open(os.path.join(data, "labels.csv"), "w") as f:
+        f.write("filename,label,targeted_label\n" + "".join(
+            f"{m},{rng.randint(1, 1001)},{rng.randint(1, 1001)}\n" for m in names))
+    common = ["--attack", "mifgsm", "--model", "resnet50", "--bf16", "--targeted",
+              "--epoch", str(CLI_RESUME_EPOCH), "--batchsize", str(CLI_RESUME_IMAGES),
+              "--input_dir", data]
+    plain_dir, resumed_dir = os.path.join(work, "plain"), os.path.join(work, "resumed")
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    cli.main([*common, "--output_dir", plain_dir])
+    torch.cuda.synchronize()
+    plain_s, plain_launches = time.perf_counter() - t0, fused_sign_update.launches
+    check(plain_launches == CLI_RESUME_EPOCH, f"the uninterrupted run launched the update "
+          f"kernel {plain_launches} times, expected {CLI_RESUME_EPOCH}")
+
+    resumed = [*common, "--output_dir", resumed_dir, "--checkpoint_every", str(CLI_RESUME_EVERY)]
+    ckpt = os.path.join(resumed_dir, "_ckpt", "batch_00000")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    log = os.path.join(work, "killed_run.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "transferattack_torch.main", *resumed],
+                                cwd=work, env=env, stdout=err, stderr=subprocess.STDOUT)
+        try:
+            while not os.path.exists(ckpt) and proc.poll() is None \
+                    and time.perf_counter() - t0 < 300:
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    check(os.path.exists(ckpt), f"no checkpoint appeared before the run ended (exit "
+          f"{proc.returncode}): {Path(log).read_text()[-2000:]}")
+    killed_s = time.perf_counter() - t0
+    saved = int(torch.load(ckpt, map_location="cpu", weights_only=True)["step"])
+    check(saved % CLI_RESUME_EVERY == 0 and 0 < saved < CLI_RESUME_EPOCH,
+          f"checkpoint at step {saved}")
+    fused_sign_update.launches = 0
+    t0 = time.perf_counter()
+    cli.main(resumed)
+    torch.cuda.synchronize()
+    resumed_s, resumed_launches = time.perf_counter() - t0, fused_sign_update.launches
+    check(resumed_launches == CLI_RESUME_EPOCH - saved,
+          f"the resumed run launched the update kernel {resumed_launches} times, expected "
+          f"{CLI_RESUME_EPOCH - saved} (resumed at step {saved})")
+    differ = sum(Path(plain_dir, m).read_bytes() != Path(resumed_dir, m).read_bytes()
+                 for m in names)
+    check(differ == 0, f"{differ} of {len(names)} PNGs of the resumed run differ from "
+          "the uninterrupted run's")
+    check(not os.path.exists(os.path.join(resumed_dir, "_ckpt")), "_ckpt left behind")
+    print(f"[24b resume] CLI, targeted MI-FGSM ResNet-50 bf16, {CLI_RESUME_EPOCH} iterations, "
+          f"batch {CLI_RESUME_IMAGES}, --checkpoint_every {CLI_RESUME_EVERY}: uninterrupted "
+          f"{plain_s:.2f} s, {plain_launches} launches; a subprocess killed (SIGKILL) after "
+          f"{killed_s:.2f} s with its checkpoint at step {saved}, then resumed in "
+          f"{resumed_s:.2f} s with {resumed_launches} launches: {len(names)} PNGs byte for "
+          f"byte the uninterrupted run's, _ckpt removed")
+    return {"data": data, "adv": resumed_dir,
+            "launches": {"cli_uninterrupted": plain_launches, "cli_resumed": resumed_launches}}
+
+
+def run_parallel_family(dev, smi, main_img_s: float) -> dict:
+    """Phase 24: (a) the main path in segments, resumed; (b) the CLI killed
+    and resumed; (c) the runner and the sharded eval on NCCL at a world of
+    1.  Returns the update-kernel launches of each run."""
+    launches = {}
+    # (a) the main path in segments of RESUME_EVERY, and a run stopped
+    # after its second segment's checkpoint, then resumed
+    attack = tt.load_attack_class("mifgsm")(model_name="resnet50",
+                                            compute_dtype="bfloat16", device="cuda")
+    x = torch.from_numpy(np.random.RandomState(2).rand(*MAIN_SHAPE).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = attack.model.apply(x).argmax(-1)
+    want = attack(x, y)
+    again = attack(x, y)
+    torch.cuda.synchronize()
+    spread = float((want - again).abs().max())
+    print(f"[24a resume] two uninterrupted main-path calls: max|d1 - d2| = {spread:g}")
+    with tempfile.TemporaryDirectory() as work:
+        ckpt_dir = os.path.join(work, "ckpt")
+        fused_sign_update.launches = 0
+        got = attack.call_resumable(x, y, ckpt_dir, every=RESUME_EVERY)
+        torch.cuda.synchronize()
+        launches["resume_main_path"] = fused_sign_update.launches
+        check(launches["resume_main_path"] == 10, f"resumable call launched the update "
+              f"kernel {launches['resume_main_path']} times, expected 10")
+        gap = float((got - want).abs().max())
+        check(gap <= spread, f"segments of {RESUME_EVERY} vs one call: max|d| = {gap}, two "
+              f"calls {spread}")
+        save, saved = tattack.save_state, []
+
+        def save_then_stop(path, state, gen):
+            save(path, state, gen)
+            saved.append(path)
+            if len(saved) == 2:
+                raise InterruptedError("stopped after the second segment")
+
+        tattack.save_state = save_then_stop
+        try:
+            attack.call_resumable(x, y, ckpt_dir, every=RESUME_EVERY)
+            check(False, "the stopped run did not stop")
+        except InterruptedError:
+            pass
+        finally:
+            tattack.save_state = save
+        path = saved[-1]
+        mib = os.path.getsize(path) / 2 ** 20
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = tattack.load_state(path, gen, dev)
+        torch.cuda.synchronize()
+        save_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save(os.path.join(work, "timed"), state, gen)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        resumed = attack.call_resumable(x, y, ckpt_dir, every=RESUME_EVERY)
+        torch.cuda.synchronize()
+        gap_resumed = float((resumed - want).abs().max())
+        check(gap_resumed <= spread, f"stopped at step {state.step} and resumed vs one call: "
+              f"max|d| = {gap_resumed}, two calls {spread}")
+        check(not os.path.exists(ckpt_dir), "the resumed call left its checkpoint")
+    print(f"[24a resume] MI-FGSM ResNet-50 bf16, {MAIN_SHAPE}, segments of {RESUME_EVERY}: "
+          f"max|d| against one call {gap:g}, stopped at step {state.step} and resumed "
+          f"{gap_resumed:g} (bound {spread:g}); {launches['resume_main_path']} launches; a "
+          f"checkpoint (delta, momentum, step, generator) is {mib:.1f} MiB, saved in "
+          f"{statistics.median(save_ms):.1f} ms (median of 3, the host's temporary "
+          f"directory) on {smi}")
+    del got, resumed, again, state
+
+    # (b) the CLI killed and resumed, in a working directory of its own
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            cli_run = resume_cli(work)
+            launches.update(cli_run["launches"])
+
+            # (c) the runner and the sharded eval on NCCL at a world of 1
+            dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous", rank=0,
+                                    world_size=1, device_id=dev)
+            try:
+                runner = ShardedAttackRunner(attack)
+                check(runner.shard, "the main path's key does not shard")
+                fused_sign_update.launches = 0
+                got = runner(x, y)
+                torch.cuda.synchronize()
+                launches["runner_world1"] = fused_sign_update.launches
+                check(launches["runner_world1"] == 10, f"the runner launched the update "
+                      f"kernel {launches['runner_world1']} times, expected 10")
+                check(torch.equal(got, want) or float((got - want).abs().max()) <= spread,
+                      f"runner vs the attack: max|d| = {float((got - want).abs().max())}")
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runner(x, y)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                runner_img_s = MAIN_SHAPE[0] / statistics.median(times)
+                eval_model = make_model("resnet50", device=dev)
+                ds = AdvDataset(input_dir=cli_run["data"], output_dir=cli_run["adv"],
+                                targeted=True, eval_mode=True)
+                sharded_asr = cli.evaluate_model(eval_model, ds, CLI_RESUME_IMAGES, True, dev)
+            finally:
+                dist.destroy_process_group()
+            plain_asr = cli.evaluate_model(eval_model, ds, CLI_RESUME_IMAGES, True, dev)
+            check(sharded_asr == plain_asr, f"sharded eval ASR {sharded_asr}, plain {plain_asr}")
+        finally:
+            os.chdir(cwd)
+    print(f"[24c parallel] ShardedAttackRunner on NCCL, world 1, main path: bit-exact "
+          f"{torch.equal(got, want)}, {launches['runner_world1']} launches, "
+          f"{runner_img_s:.2f} img/s (calls {', '.join(f'{t:.4f}' for t in times)} s) "
+          f"beside phase 5's {main_img_s:.2f}; sharded eval ASR {sharded_asr:.2f} = plain "
+          f"{plain_asr:.2f} (ResNet-50 on 24b's PNGs, targeted) on {smi}")
+    del attack, x, y, want, got, eval_model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runner_img_s": runner_img_s}
+
+
 def run_cli(work: str):
     """Phase 9 in ``work``: seeded PNGs labelled by the surrogate, the
     attack, then the eval.  Returns the update-kernel launches of the
@@ -3347,7 +3562,8 @@ def main() -> None:
         attack(x, y)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    print(f"[5 main path] {MAIN_SHAPE[0] / statistics.median(times):.2f} img/s "
+    main_img_s = MAIN_SHAPE[0] / statistics.median(times)
+    print(f"[5 main path] {main_img_s:.2f} img/s "
           f"(calls {', '.join(f'{t:.4f}' for t in times)} s) on {smi}")
     del attack, x, y, delta, adv, logits0, logits1
     torch.cuda.empty_cache()
@@ -3565,7 +3781,7 @@ def main() -> None:
 
     # 10. the bench line
     print("[10 bench] ", end="")
-    bench.main([])
+    bench_line = bench.main([])
     phase_seconds(10, clock)
 
     # 11. the gradient family
@@ -3630,7 +3846,12 @@ def main() -> None:
 
     # 23. the weights converter, the sweep, the family bench, the ViT profile, the gate
     tools_launches_ = run_tools_family(dev, smi)
+    torch.cuda.empty_cache()
     phase_seconds(23, clock)
+
+    # 24. resume of the attack state, the runner and the sharded eval
+    parallel = run_parallel_family(dev, smi, main_img_s)
+    phase_seconds(24, clock)
 
     # the 1x1 row: the two launches of one chain call together
     in_chain = [c for c in cases_1x1 if c["in_chain"]]
@@ -3639,6 +3860,13 @@ def main() -> None:
         sum(c["bytes"] for c in in_chain), sum(c["flops"] for c in in_chain))
     row_1x1["library"] = "torch.matmul(g, wt): reads neither mask nor skip, not the same function"
 
+    # the headline figures, where the end of the output keeps them
+    print(json.dumps({"summary": {
+        "main_path_img_s": main_img_s, "bench_img_s": bench_line["value"],
+        "bench_spread": bench_line["spread"], "runner_world1_img_s": parallel["runner_img_s"],
+        "card": smi, "seconds": clock[-1] - clock[0],
+        "phase_seconds": {str(i + 1): round(b - a, 1) for i, (a, b) in
+                          enumerate(zip(clock, clock[1:]))}}}))
     print(json.dumps({"kernels": [
         {"name": "fused_sign_update", "route": "cuda",
          "source": "transferattack_torch/ops/csrc/fused_update.cu",
@@ -3655,6 +3883,7 @@ def main() -> None:
          "launches_sd": sd_launches_,
          "launches_defense": defense_launches_,
          "launches_tools": tools_launches_,
+         "launches_parallel": parallel["launches"],
          "max_abs_err": max_err,
          "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": update_bound, "bound_by": update_bound_by,

@@ -334,8 +334,6 @@ def test_eval_bf16_model_matches_jax(cli_runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--model_axis", "2"], NotImplementedError),
-    (["--checkpoint_every", "5"], NotImplementedError),
     (["--attack", "no_such_attack"], ValueError),  # every registry key is ported
     (["--attack", "diffattack"], ValueError),  # the SD backend reads its weights strictly
 ])
@@ -348,6 +346,20 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, error):
     with pytest.raises(error):
         tmain.main(["--model", "toy_cnn", "--device", "cpu", "--input_dir",
                     str(tmp_path), "--output_dir", str(tmp_path / "out"), *flags])
+
+
+@pytest.mark.parametrize("flags", [["--model_axis", "2"], ["--checkpoint_every", "1"]])
+def test_cli_takes_model_axis_and_checkpoint_every(tmp_path, flags):
+    """JAX's last two flags: ``--model_axis`` outside a process group keeps
+    the members together (JAX's one-device mesh does too), and
+    ``--checkpoint_every`` runs each batch in segments."""
+    from transferattack_torch import main as tmain
+
+    data = make_fake_dataset(str(tmp_path / "data"), n=2, size=32, num_classes=10)
+    tmain.main(["--model", "toy_cnn", "--epoch", "2", "--batchsize", "2", "--device", "cpu",
+                "--input_dir", data, "--output_dir", str(tmp_path / "out"), *flags])
+    assert sorted(os.listdir(tmp_path / "out")) == ["attack_meta.json", "img_0000.png",
+                                                     "img_0001.png"]
 
 
 @pytest.mark.parametrize("flags", [["--ensemble"], []], ids=["ensemble", "comma_list"])

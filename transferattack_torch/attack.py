@@ -10,11 +10,21 @@ surrogate's weights live in its ``nn.Module``, so the hooks take no
 Public tensors keep the JAX layout: ``(B, H, W, C)`` float in [0, 1].
 Delta, momentum and x stay contiguous NHWC fp32, which is what the update
 kernel reads.
+
+A long run can be cut into segments (:meth:`Attack.run_from`) with the loop
+state and the generator's state saved between them
+(:meth:`Attack.call_resumable`), which gives the delta of one uninterrupted
+run.  ``data_split`` and ``copies_group`` are set by
+:mod:`transferattack_torch.parallel` when ranks of ``torch.distributed``
+share the batch or the augmented copies.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import glob
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -67,9 +77,13 @@ def draw(gen: torch.Generator, fn, *args, device=None, **kwargs) -> Tensor:
     return fn(*args, generator=gen, device=gen.device, **kwargs).to(device)
 
 
-def global_l1_normalize(g: Tensor) -> Tensor:
-    """Normalize by the global L1 norm (PC-I-FGSM's ``torch.norm(grad, p=1)``)."""
-    return g / (g.abs().sum() + 1e-12)
+def global_l1_normalize(g: Tensor, split=None) -> Tensor:
+    """Normalize by the global L1 norm (PC-I-FGSM's ``torch.norm(grad, p=1)``).
+    ``split`` (an attack's ``data_split``) sums the norm over the real rows
+    of every rank that holds a part of the batch."""
+    if split is None:
+        return g / (g.abs().sum() + 1e-12)
+    return g / (split.sum_rows(g.abs()) + 1e-12)
 
 
 def cosine_similarity(a: Tensor, b: Tensor) -> Tensor:
@@ -111,13 +125,20 @@ class Attack:
     epoch=10, untargeted).  ``compute_dtype='bfloat16'`` runs the surrogate
     in bf16, BN buffers included, while delta, momentum and the loss stay
     fp32 (an ensemble's members alone: :func:`member_passes`); ``None`` is
-    full fp32.  ``device`` defaults to ``'cuda'`` and
-    raises when no card is present.
+    full fp32, and ``'float64'`` the surrogate in fp64.  ``device`` defaults
+    to ``'cuda'`` and raises when no card is present.
     """
 
     # the batch size the attack runs at, whatever the CLI's ``--batchsize``
     # (LPM's 1); None takes any
     requires_batchsize: Optional[int] = None
+    # this rank's part of a batch split over ranks (``parallel.DataSplit``,
+    # set by ``ShardedAttackRunner`` for one call); None: the whole batch
+    data_split = None
+    # a process group whose ranks each take a contiguous slice of the
+    # flattened (copies · batch) axis of ``get_logits`` (JAX's
+    # ``copies_sharding``); None: every copy here
+    copies_group = None
 
     def __init__(
         self,
@@ -146,7 +167,9 @@ class Attack:
         self.model = resolve_model(model_name, device=self.device, **model_kwargs)
         self.model.module.eval().requires_grad_(False)
         if self.compute_dtype is not None:
-            if self.model.members:  # a surrogate of its own: a built one may be shared
+            # a surrogate of its own (a built one may be shared); the members
+            # alone take fp32 passes under a dtype narrower than fp32 only
+            if self.model.members and self.compute_dtype.itemsize < 4:
                 self.model = dataclasses.replace(
                     self.model, members=member_passes(self.model.members))
             self.model.module.to(self.compute_dtype)
@@ -200,12 +223,23 @@ class Attack:
     def get_logits(self, xs: Tensor) -> Tensor:
         """``xs``: (n, B, H, W, C) → fp32 logits (n, B, num_classes)."""
         n, b = xs.shape[0], xs.shape[1]
-        logits = self.model.apply(xs.reshape((n * b,) + xs.shape[2:])).float()
+        flat = xs.reshape((n * b,) + xs.shape[2:])
+        if self.copies_group is None:
+            logits = self.model.apply(flat)
+        else:
+            from .parallel import split_rows
+
+            logits = split_rows(self.model.apply, flat, self.copies_group)
+        logits = logits.float()
         return logits.reshape((n, b) + logits.shape[1:])
 
     def get_loss(self, logits: Tensor, y: Tensor) -> Tensor:
-        """Scalar loss, negated for targeted attacks."""
+        """Scalar loss, negated for targeted attacks.  It is a mean over
+        the batch: on a rank that holds a part of it, the mean over the
+        whole batch's rows (``data_split.loss_scale``)."""
         ce = softmax_cross_entropy(logits, y).mean()
+        if self.data_split is not None:
+            ce = ce * self.data_split.loss_scale
         return -ce if self.targeted else ce
 
     def get_grad(self, x: Tensor, y: Tensor, state: AttackState,
@@ -282,14 +316,56 @@ class Attack:
 
     def run(self, x: Tensor, y: Tensor, gen: torch.Generator) -> Tensor:
         """The full attack: ``epoch`` steps, then the final projection."""
-        state = self.init_state(x, y, gen)
-        for _ in range(self.epoch):
-            state = self.step(x, y, state, gen)
+        state = self.run_from(x, y, self.init_state(x, y, gen), gen, self.epoch)
         return self.finalize(state, x, y)
+
+    def run_from(self, x: Tensor, y: Tensor, state: AttackState, gen: torch.Generator,
+                 n_steps: int) -> AttackState:
+        """``n_steps`` iterations from any state.  Runs in segments give the
+        state of one long run, given the generator in the state it had."""
+        for _ in range(n_steps):
+            state = self.step(x, y, state, gen)
+        return state
 
     def finalize(self, state: AttackState, x: Tensor, y: Tensor) -> Tensor:
         """Final projection; returns delta."""
         return torch.clamp(x + state.delta, img_min, img_max) - x
+
+    def supports_resume(self) -> bool:
+        """Whether :meth:`call_resumable` can cut the run into segments: the
+        stock loop (a key with a ``run`` of its own manages its own
+        trajectory) and no per-batch host preparation (a ``__call__`` of its
+        own), JAX's rule."""
+        return type(self).run is Attack.run and type(self).__call__ is Attack.__call__
+
+    def call_resumable(self, data, label, ckpt_dir: str, every: int,
+                       generator: Optional[torch.Generator] = None, idx: int = 0) -> Tensor:
+        """:meth:`__call__` in segments of ``every`` iterations, the loop state
+        and the generator's state saved to ``ckpt_dir/batch_{idx:05d}``
+        between them.  A call that finds that file resumes from it; the last
+        segment deletes it (and ``ckpt_dir`` once empty).  The delta is the
+        uninterrupted call's.  A key that cannot resume, or an ``every``
+        outside ``(0, epoch)``, runs as :meth:`__call__`."""
+        if not self.supports_resume() or not 0 < every < self.epoch:
+            return self(data, label, generator=generator, idx=idx)
+        x = torch.as_tensor(data, dtype=torch.float32, device=self.device).contiguous()
+        y = self.prepare_labels(label)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.seed + idx)
+        path = os.path.join(os.path.abspath(ckpt_dir), f"batch_{idx:05d}")
+        state = self.init_state(x, y, generator)
+        if os.path.exists(path):
+            state = load_state(path, generator, self.device)
+        while state.step < self.epoch:
+            state = self.run_from(x, y, state, generator, min(every, self.epoch - state.step))
+            if state.step < self.epoch:
+                save_state(path, state, generator)
+        for done in [path, *glob.glob(f"{path}.tmp*")]:  # and a save cut by a kill
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(done)
+        with contextlib.suppress(OSError):  # not empty: other batches' files
+            os.rmdir(os.path.dirname(path))
+        return self.finalize(state, x, y)
 
     def __call__(self, data, label, generator: Optional[torch.Generator] = None,
                  idx: int = 0) -> Tensor:
@@ -308,3 +384,23 @@ class Attack:
         if self.targeted and y.ndim == 2:
             y = y[:, 1]
         return y
+
+
+def save_state(path: str, state: AttackState, gen: torch.Generator) -> None:
+    """``torch.save`` of the loop state and the generator's state, written
+    under a temporary name and moved onto ``path``, so that a process killed
+    while saving leaves the last whole checkpoint."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({"delta": state.delta, "momentum": state.momentum, "step": state.step,
+                "extra": state.extra, "generator": gen.get_state()}, tmp)
+    os.replace(tmp, path)
+
+
+def load_state(path: str, gen: torch.Generator, device) -> AttackState:
+    """The state :func:`save_state` wrote, on ``device``; sets ``gen`` to the
+    state it had then."""
+    ck = torch.load(path, map_location=device, weights_only=True)
+    gen.set_state(ck["generator"].cpu())
+    return AttackState(delta=ck["delta"], momentum=ck["momentum"], step=int(ck["step"]),
+                       extra=ck["extra"])

@@ -82,23 +82,23 @@ class ANDA(Attack):
             rows[k0:k0 + self.n_ens] = (grads - mean[None]).reshape(self.n_ens, x.shape[0], -1)
             extra["dev_rows"] = rows
             extra["prev_delta"] = state.delta
+            if state.step + 1 == self.epoch:
+                # the covariance sample's weights, drawn after the last
+                # step (finalize takes no generator)
+                extra["z"] = draw(gen, torch.randn, rows.shape[0], device=x.device)
         xt = torch.clamp(xt + self.alpha * torch.sign(mean), img_min, img_max)
         xt = torch.minimum(torch.maximum(xt, x - self.eps), x + self.eps)
         return AttackState(delta=xt - x, momentum=state.momentum, step=state.step + 1,
                            extra=extra)
 
-    def run(self, x, y, gen):
-        state = self.init_state(x, y, gen)
-        for _ in range(self.epoch):
-            state = self.step(x, y, state, gen)
+    def finalize(self, state: AttackState, x, y):
         if not self.sample:
-            return self.finalize(state, x, y)
+            return super().finalize(state, x, y)
         # one gaussian sample from the learned low-rank covariance:
         # mean + z @ dev_rows / sqrt(K - 1), stepped from the adversary
         # before the last update
-        rows = state.extra["dev_rows"]
+        rows, z = state.extra["dev_rows"], state.extra["z"]
         K = rows.shape[0]
-        z = draw(gen, torch.randn, K, device=x.device)
         noise = state.extra["mean"] + (torch.einsum("k,kbd->bd", z, rows)
                                        / np.sqrt(K - 1)).reshape(x.shape)
         xt = torch.clamp(x + state.extra["prev_delta"] + self.alpha * torch.sign(noise),

@@ -31,7 +31,7 @@ class DTA(Attack):
         gtk, momentum_tk = torch.zeros_like(x), torch.zeros_like(x)
         for _ in range(self.K):
             g = self.input_grad(x + delta_tk + gt, y, state, gen)
-            gt = self.u * gt + global_l1_normalize(g)
+            gt = self.u * gt + global_l1_normalize(g, self.data_split)
             gtk = gtk + g
             momentum_tk = self.get_momentum(g, momentum_tk)
             delta_tk = self.update_delta(delta_tk, x, momentum_tk)

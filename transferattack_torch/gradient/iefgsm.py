@@ -69,11 +69,11 @@ class PCIFGSM(Attack):
 
     def get_grad(self, x, y, state: AttackState, gen):
         grad = self.input_grad(x + state.delta, y, state, gen)
-        g_pre = global_l1_normalize(grad)
+        g_pre = global_l1_normalize(grad, self.data_split)
         delta_pre = torch.zeros_like(x)  # init_delta without random start
         for _ in range(self.K):
             g = self.input_grad(x + state.delta + delta_pre, y, state, gen)
-            g_pre = self.decay * g_pre + global_l1_normalize(g) / self.K
+            g_pre = self.decay * g_pre + global_l1_normalize(g, self.data_split) / self.K
             delta_pre = torch.clamp(delta_pre + self.eps * torch.sign(g), -self.eps, self.eps)
             delta_pre = torch.clamp(x + delta_pre, img_min, img_max) - x
         return g_pre, {}

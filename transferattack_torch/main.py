@@ -14,6 +14,17 @@ paper models by default), prints ``{model}: {asr:.1f}`` per model and
 appends a row to ``results_eval.txt`` and records to ``results_eval.jsonl``
 in the working directory.  Everything runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; without a card the CUDA default raises.
+
+Under ``torchrun`` each rank takes a card (``cuda:{LOCAL_RANK}``; gloo
+ranks with ``--device cpu``): an attack's batch is split over the ranks
+(``parallel.ShardedAttackRunner``; ``--no_mesh`` keeps it whole), the
+ensemble members go on ranks of their own with ``--model_axis``, the eval
+scores each rank's rows, and rank 0 writes the outputs.
+``--checkpoint_every N`` saves the attack state every N iterations, so that
+a long run that is killed resumes where it stopped:
+
+    torchrun --nproc_per_node=1 -m transferattack_torch.main --attack mifgsm \
+        --targeted --epoch 300 --checkpoint_every 50 --input_dir ./data --output_dir ./adv
 """
 from __future__ import annotations
 
@@ -25,10 +36,13 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .config import build_attack
 from .models import (fallback_weights_used, make_model, resolve_device,
                      round_variables_to_bf16)
+from .parallel import (ShardedAttackRunner, data_model_groups, init_from_env,
+                       mesh_ensemble_surrogate, pad_to_multiple, rank_of, world_size)
 from .utils import cnn_model_paper, generation_target_classes, vit_model_paper
 from .utils.data import AdvDataset, save_images
 
@@ -48,8 +62,8 @@ def parse_fraction(s: str) -> float:
 
 
 def get_parser() -> argparse.ArgumentParser:
-    # the JAX CLI's flags; --GPU_ID and --no_mesh are accepted and ignored
-    # (one device, chosen by --device)
+    # the JAX CLI's flags; --GPU_ID is accepted and ignored (the device is
+    # --device's, or LOCAL_RANK's under torchrun)
     p = argparse.ArgumentParser(description="TransferAttack on PyTorch/CUDA")
     p.add_argument("-e", "--eval", action="store_true", help="attack/evaluation")
     p.add_argument("--attack", default="mifgsm", type=str)
@@ -71,9 +85,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", default="./results", type=str)
     p.add_argument("--targeted", action="store_true")
     p.add_argument("--GPU_ID", default="0", type=str)
-    p.add_argument("--no_mesh", action="store_true")
+    p.add_argument("--no_mesh", action="store_true",
+                   help="under torchrun, run each batch whole on every rank")
     p.add_argument("--model_axis", default=0, type=int,
-                   help="not ported: ensemble members on devices of their own")
+                   help="place ensemble members on ranks of their own, this many "
+                        "on the model axis (the ranks as a (data, model) grid; the "
+                        "member mean is an all-reduce). 0 = members together")
     p.add_argument("--eval_models", default="", type=str,
                    help="comma list overriding the 8 paper eval models")
     p.add_argument("--bf16", action="store_true",
@@ -82,22 +99,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip_existing", action="store_true",
                    help="resume: skip batches whose output PNGs already exist")
     p.add_argument("--checkpoint_every", default=0, type=int,
-                   help="not ported: checkpoint the attack state every N iterations")
+                   help="save the attack state every N iterations, so that an "
+                        "interrupted long run (T=300 targeted) resumes mid-batch; "
+                        "runs each batch whole and unpipelined")
     p.add_argument("--profile_dir", default="", type=str,
                    help="write a torch.profiler trace of the first batch here")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; 'cpu' runs the plain path on the CPU")
     return p
-
-
-def _check_ported(args) -> None:
-    """Refuse the JAX CLI's options that the port does not have yet."""
-    if args.model_axis > 0:
-        raise NotImplementedError("--model_axis is not ported yet (ensemble "
-                                  "members on devices of their own)")
-    if args.checkpoint_every > 0:
-        raise NotImplementedError("--checkpoint_every is not ported yet (mid-batch "
-                                  "resume of the attack state)")
 
 
 @contextlib.contextmanager
@@ -115,9 +124,8 @@ def _profiled(out_dir: str, device: torch.device):
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
-def run_attack(args) -> None:
-    _check_ported(args)
-    device = resolve_device(args.device)
+def run_attack(args, device: torch.device) -> None:
+    main_rank = rank_of() == 0
     os.makedirs(args.output_dir, exist_ok=True)
     # an ensemble of the listed models, as the JAX CLI builds it
     model = args.model.split(",") if (args.ensemble or "," in args.model) else args.model
@@ -129,6 +137,17 @@ def run_attack(args) -> None:
     )
     if attacker.requires_batchsize is not None:
         args.batchsize = attacker.requires_batchsize
+    resumable = (args.checkpoint_every > 0
+                 and getattr(attacker, "supports_resume", lambda: False)())
+    runner = attacker
+    if dist.is_initialized() and world_size() > 1 and not args.no_mesh and not resumable:
+        group = None
+        if args.model_axis > 0 and getattr(attacker.model, "members", ()):
+            groups = data_model_groups(args.model_axis)
+            attacker.model = mesh_ensemble_surrogate(attacker.model, groups)
+            group = groups.data
+        runner = ShardedAttackRunner(attacker, group)
+    write = _write if main_rank else _wait
     dataset = AdvDataset(input_dir=args.input_dir, output_dir=args.output_dir,
                          targeted=args.targeted)
     pending = None
@@ -136,7 +155,7 @@ def run_attack(args) -> None:
     # writing PNGs; the rest of the loop is reading and resizing the inputs
     spent = {"queue": 0.0, "wait": 0.0, "write": 0.0}
     t_start, n_done = time.perf_counter(), 0
-    for images, labels, names in dataset.as_batches(args.batchsize):
+    for batch_no, (images, labels, names) in enumerate(dataset.as_batches(args.batchsize)):
         if args.skip_existing and all(
                 os.path.exists(os.path.join(args.output_dir, n)) for n in names):
             continue
@@ -146,28 +165,43 @@ def run_attack(args) -> None:
                 # once a target class, into a subdirectory of its own
                 for idx, target_class in enumerate(generation_target_classes):
                     t0 = time.perf_counter()
-                    delta = attacker(images, labels, idx=idx).cpu()
+                    delta = runner(images, labels, idx=idx).cpu()
                     spent["queue"] += time.perf_counter() - t0
-                    _write(os.path.join(args.output_dir, str(target_class)), delta, None,
-                           images, names, spent)
+                    write(os.path.join(args.output_dir, str(target_class)), delta, None,
+                          images, names, spent)
+                n_done += len(names)
+                continue
+            if resumable:
+                # run whole by rank 0 alone (JAX's one controller turns its
+                # mesh off), each batch seeded by its number as in JAX
+                if not main_rank:
+                    continue
+                t0 = time.perf_counter()
+                delta = attacker.call_resumable(
+                    images, labels, ckpt_dir=os.path.join(args.output_dir, "_ckpt"),
+                    every=args.checkpoint_every, idx=batch_no).cpu()
+                spent["queue"] += time.perf_counter() - t0
+                write(args.output_dir, delta, None, images, names, spent)
                 n_done += len(names)
                 continue
             # pipeline: queue this batch on the device, and its delta's copy
             # to the host behind it; then write the previous batch's PNGs
             # while the device works
             t0 = time.perf_counter()
-            delta = attacker(images, labels).to("cpu", non_blocking=True)
+            delta = runner(images, labels).to("cpu", non_blocking=True)
             done = torch.cuda.Event() if device.type == "cuda" else None
             if done is not None:
                 done.record()
             spent["queue"] += time.perf_counter() - t0
             if pending is not None:
-                _write(args.output_dir, *pending, spent)
+                write(args.output_dir, *pending, spent)
             pending = (delta, done, images, names)
         n_done += len(names)
     if pending is not None:
-        _write(args.output_dir, *pending, spent)
+        write(args.output_dir, *pending, spent)
     dt = time.perf_counter() - t_start
+    if not main_rank:
+        return
     if n_done:
         print(f"[{args.attack}] {n_done} images in {dt:.1f}s "
               f"({n_done / dt:.1f} img/s end-to-end incl. IO and kernel build)")
@@ -194,24 +228,42 @@ def _write(output_dir, delta, done, images, names, spent) -> None:
     spent["write"] += time.perf_counter() - t1
 
 
+def _wait(output_dir, delta, done, images, names, spent) -> None:
+    """A rank other than 0 writes nothing: it waits for its copy."""
+    t0 = time.perf_counter()
+    if done is not None:
+        done.synchronize()
+    spent["wait"] += time.perf_counter() - t0
+
+
 def evaluate_model(surrogate, dataset, batchsize: int, is_targeted: bool,
                    device: torch.device) -> float:
-    """Attack success rate (percent) of ``dataset``'s images on one model."""
+    """Attack success rate (percent) of ``dataset``'s images on one model.
+    In a process group each rank scores its rows of each batch (padded to a
+    multiple of the ranks) and the correct counts are all-reduced."""
+    world, rank = world_size(), rank_of()
     correct, total = 0, 0
     with torch.inference_mode():
         for images, labels, _ in dataset.as_batches(batchsize):
             if is_targeted and labels.ndim == 2:
                 labels = labels[:, 1]
-            x = torch.as_tensor(images, device=device)
-            pred = surrogate.apply(x).argmax(-1).cpu().numpy()
-            correct += int((labels == pred).sum())
+            padded, n = pad_to_multiple(images, world)
+            per = padded.shape[0] // world
+            real = min(max(n - rank * per, 0), per)
+            x = torch.as_tensor(padded[rank * per:(rank + 1) * per], device=device)
+            pred = surrogate.apply(x).argmax(-1).cpu().numpy()[:real]
+            correct += int((labels[rank * per:rank * per + real] == pred).sum())
             total += len(labels)
+    if dist.is_initialized():
+        count = torch.tensor([correct], dtype=torch.int64, device=device)
+        dist.all_reduce(count)
+        correct = int(count.item())
     acc = correct / max(total, 1)
     return acc * 100 if is_targeted else (1 - acc) * 100
 
 
-def run_eval(args) -> None:
-    device = resolve_device(args.device)
+def run_eval(args, device: torch.device) -> None:
+    main_rank = rank_of() == 0
     names = (args.eval_models.split(",") if args.eval_models
              else cnn_model_paper + vit_model_paper)
     res, records = "|", []
@@ -243,8 +295,9 @@ def run_eval(args) -> None:
                             targeted=args.targeted, eval_mode=True)
             asr = evaluate_model(surrogate, ds, args.batchsize, args.targeted, device)
         eval_s = time.perf_counter() - t_model
-        print(f"{name}: {asr:.1f}", flush=True)
-        print(f"[eval] {name}: {eval_s:.1f} s incl. model build and IO", flush=True)
+        if main_rank:
+            print(f"{name}: {asr:.1f}", flush=True)
+            print(f"[eval] {name}: {eval_s:.1f} s incl. model build and IO", flush=True)
         res += f" {asr:.1f} |"
         records.append({"output_dir": args.output_dir, "attack": args.attack,
                         "eval_model": name, "asr": round(asr, 2),
@@ -253,6 +306,8 @@ def run_eval(args) -> None:
                         "fallback_weights_used": fallback_weights_used(),
                         "attack_fallback_weights_used": attack_fallbacks})
         del surrogate
+    if not main_rank:
+        return
     print(res)
     # the reference's markdown row, and JSON records for programs
     with open("results_eval.txt", "a") as f:
@@ -264,10 +319,17 @@ def run_eval(args) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = get_parser().parse_args(argv)
-    if args.eval:
-        run_eval(args)
-    else:
-        run_attack(args)
+    joined = not dist.is_initialized()
+    device = init_from_env(resolve_device(args.device))
+    joined = joined and dist.is_initialized()
+    try:
+        if args.eval:
+            run_eval(args, device)
+        else:
+            run_attack(args, device)
+    finally:
+        if joined:  # the group this call made under torchrun
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ targeted matrices) and reproduces every runnable cell end to end:
   * the ViT-surrogate rows (``--model vit_base_patch16_224``),
   * the 4-CNN ensemble rows (ENS/SVRE/AdaEA/CWA/SMER, ``--ensemble``),
   * the targeted table (``--targeted``, each attack's official epochs;
-    a long row resumes by ``--skip_existing``).
+    a long row resumes by ``--skip_existing`` and, inside a batch, from the
+    attack state saved every ``--checkpoint_every`` iterations).
 
 Each attack and eval runs as ``python -m transferattack_torch.main`` with
 ``--device`` passed through, in ``--out_root`` (where the CLI appends
@@ -223,6 +224,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="also score the 5 defense columns (slow: RS is N=1000 noisy "
                         "forwards an image)")
     p.add_argument("--batchsize", default=32, type=int)
+    p.add_argument("--checkpoint_every", default=50, type=int,
+                   help="resume granularity of the T=300 targeted rows")
     p.add_argument("--device", default="cuda", type=str)
     return p
 
@@ -260,7 +263,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if is_ens:
             cmd.append("--ensemble")
         if row["targeted"]:
-            cmd += ["--targeted", "--skip_existing"]
+            cmd += ["--targeted", "--skip_existing",
+                    "--checkpoint_every", str(args.checkpoint_every)]
         run(cmd, args.out_root, check=True)
         fb = attack_fallbacks(out_dir)
         if fb:
