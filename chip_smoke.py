@@ -248,8 +248,14 @@ random weights.  Phases:
     uninterrupted run, ``_ckpt`` gone, the launches of each run (300, and
     300 less the step it resumed at); (c) ``ShardedAttackRunner`` on NCCL at
     a world of 1: the main path bit for bit the attack's, 10 launches, its
-    img/s beside phase 5's; the sharded eval's ASR that of the plain eval.
-    The ``kernels`` line's row 1 gains ``launches_parallel``.
+    img/s beside phase 5's; the sharded eval's ASR that of the plain eval;
+    (d) through the same runner, one key for each rule of the split
+    (VMI-FGSM, Foolmix, Admix, POTRIP on ResNet-50 and TGR on ViT-B/16, bf16,
+    batch 32, official hyperparameters, cuDNN's deterministic algorithms):
+    each delta bit for bit its own call's from the same seed, the
+    update-kernel launches ``expected_launches`` gives, and its img/s
+    beside its own call's.  The ``kernels`` line's row 1 gains
+    ``launches_parallel``.
 
 Each phase prints its seconds (``[time]``).  Any failed phase ends the run
 with a non-zero exit.  Without a card it fails
@@ -513,6 +519,15 @@ TOOLS_TARGET_S = 2.0  # the family bench's and the ViT profile's calibration (10
 # phase 24: segments of the main path; the CLI's targeted run and its segments
 RESUME_EVERY = 3
 CLI_RESUME_EPOCH, CLI_RESUME_EVERY, CLI_RESUME_IMAGES = 300, 50, 32
+# 24d: a key for each rule of the runner's split, at official hyperparameters
+SPLIT_KEYS = (("vmifgsm", "rule 1, draws shaped by the batch on axis 0"),
+              ("foolmix", "rule 1, draws shaped by the batch on axis 1"),
+              ("admix", "rule 2, partners from the whole batch"),
+              ("potrip", "rule 3, a clamped mean over the batch"),
+              ("tgr", "a key no earlier run held against one process"))
+SPLIT_SEED = 24
+# three calls a key keep 24d within a minute: POTRIP at a third of its 300
+SPLIT_CAPS = {"potrip": {"epoch": 100}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -3401,6 +3416,7 @@ def run_parallel_family(dev, smi, main_img_s: float) -> dict:
                 ds = AdvDataset(input_dir=cli_run["data"], output_dir=cli_run["adv"],
                                 targeted=True, eval_mode=True)
                 sharded_asr = cli.evaluate_model(eval_model, ds, CLI_RESUME_IMAGES, True, dev)
+                launches.update(run_split_keys(dev, smi)["launches"])
             finally:
                 dist.destroy_process_group()
             plain_asr = cli.evaluate_model(eval_model, ds, CLI_RESUME_IMAGES, True, dev)
@@ -3415,6 +3431,85 @@ def run_parallel_family(dev, smi, main_img_s: float) -> dict:
     del attack, x, y, want, got, eval_model
     torch.cuda.empty_cache()
     return {"launches": launches, "runner_img_s": runner_img_s}
+
+
+def run_split_keys(dev, smi) -> dict:
+    """Phase 24d, inside 24c's process group (NCCL, a world of 1): each key
+    of :data:`SPLIT_KEYS` through ``ShardedAttackRunner`` and through its own
+    call, from one seed.  At a world of 1 a rank's rows of a one-process
+    draw are the whole draw, its share of a batch mean the mean and a
+    gathered batch the batch, so the split path must give the attack's own
+    delta bit for bit.  Returns the runner's update-kernel launches and each
+    path's img/s."""
+    check(dist.is_initialized() and dist.get_world_size() == 1, "24d needs 24c's group")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # two calls of a key, the same bits
+    launches, img_s = {}, {}
+    try:
+        resnet = make_model("resnet50", device="cuda")
+        vit = make_model("vit_base_patch16_224", device="cuda")
+        x = torch.from_numpy(np.random.RandomState(SPLIT_SEED).rand(GRADIENT_BATCH, 224, 224, 3)
+                             .astype(np.float32)).to(dev)
+        for key, rule in SPLIT_KEYS:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                atk = tt.load_attack_class(key)(model_name=vit if key == "tgr" else resnet,
+                                                compute_dtype="bfloat16", device="cuda",
+                                                **SPLIT_CAPS.get(key, {}))
+            reduced = {k: [official_defaults(key)[k], v]
+                       for k, v in SPLIT_CAPS.get(key, {}).items()}
+            with torch.no_grad():  # the labels: the plain surrogate's predictions
+                y = (plain_view(atk.model) if key == "tgr" else atk.model).apply(x).argmax(-1)
+            labels = torch.stack([y, (y + 500) % 1000], dim=1) if atk.targeted else y
+            runner = ShardedAttackRunner(atk)
+            check(runner.shard, f"{key}: the runner does not split it")
+
+            def call(fn):
+                gen = torch.Generator(device=dev).manual_seed(SPLIT_SEED)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                delta = fn(x, labels, generator=gen)
+                torch.cuda.synchronize()
+                return delta, time.perf_counter() - t0
+
+            want, cold_s = call(atk)  # the reference, and the warm-up
+            fused_sign_update.launches = 0
+            got, split_s = call(runner)
+            n = launches[f"split_{key}"] = fused_sign_update.launches
+            again, own_s = call(atk)
+            exact = torch.equal(got, want)
+            check(torch.equal(again, want), f"{key}: two calls of its own differ by "
+                  f"{float((again - want).abs().max())}")
+            check(exact, f"{key}: the runner's delta differs from its own call's by "
+                  f"{float((got - want).abs().max())}")
+            expect = expected_launches(key, atk)
+            check(n == expect, f"{key}: the runner launched the update kernel {n} times, "
+                  f"its code implies {expect}")
+            linf = float(got.abs().max())
+            check(bool(torch.isfinite(got).all()) and 0 < linf <= atk.eps + 1e-6,
+                  f"{key}: |delta|inf = {linf}")
+            img_s[key] = {"runner": GRADIENT_BATCH / split_s, "own": GRADIENT_BATCH / own_s}
+            arch = "ViT-B/16" if key == "tgr" else "ResNet-50"
+            print(f"[24d split] {key} ({rule}): {arch} bf16, batch {GRADIENT_BATCH}, "
+                  f"{atk.epoch} iterations, through the runner on NCCL at a world of 1: "
+                  f"bit-exact {exact} against its own call, {n} update-kernel launches "
+                  f"(expected {expect}), {img_s[key]['runner']:.2f} img/s ({split_s:.3f} s) "
+                  f"beside its own call's {img_s[key]['own']:.2f} ({own_s:.3f} s; the "
+                  f"first, cold, {cold_s:.3f} s)"
+                  f"{f', reduced {reduced}' if reduced else ''} on {smi}")
+            print(json.dumps({"split_key": key, "rule": rule, "model": f"{arch} bf16",
+                              "batch": GRADIENT_BATCH, "epoch": atk.epoch,
+                              "bit_exact": exact, "launches": n,
+                              "runner_seconds": split_s, "own_seconds": own_s,
+                              "runner_img_per_s": img_s[key]["runner"],
+                              "own_img_per_s": img_s[key]["own"], "reduced": reduced}))
+            del atk, runner, want, got, again
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del resnet, vit, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "img_s": img_s}
 
 
 def run_cli(work: str):

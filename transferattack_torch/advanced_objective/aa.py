@@ -22,6 +22,9 @@ class AA(Attack):
     """Official args: layer_name='layer2', epoch=300, alpha=2/255,
     targeted."""
 
+    # its ``__call__`` reads the anchor images and labels on the host (JAX's flag)
+    host_state = True
+
     def __init__(self, model_name="resnet50", epoch=300, eps=16 / 255, alpha=2 / 255,
                  decay=1.0, layer_name="layer2", input_dir="./data", targeted=True,
                  random_start=False, norm="linfty", loss="crossentropy",

@@ -59,7 +59,7 @@ class ATA(Attack):
 
         def loss(d, state):
             cam_adv, logits = self._cam(x + d, y, True)
-            return (softmax_cross_entropy(logits, y).mean()
+            return (self.batch_share(softmax_cross_entropy(logits, y))
                     + self.lamda * ((cam_adv - cam_ori) ** 2).sum())
 
         return objective_loop(self, x, y, gen, loss)
@@ -102,7 +102,7 @@ class MFAA(Attack):
 
     def drop_mask(self, gen, x, i):
         """Copy ``i``'s keep mask, each pixel value kept with probability ``probb``."""
-        return (draw(gen, torch.rand, x.shape, device=x.device) < self.probb).to(x.dtype)
+        return (self.draw_rows(gen, torch.rand, x.shape, device=x.device) < self.probb).to(x.dtype)
 
     def _guidance(self, x, y, gen):
         names = list(dict.fromkeys(self._taps))
@@ -121,8 +121,9 @@ class MFAA(Attack):
         _, feats = self.model.features(x + delta, self._taps)
         L4, *middle, L2 = self._taps
 
-        def cot(n, w):  # (adv · w).sum() / numel(concat(clean, adv))
-            return (w / (2.0 * feats[n].numel())).to(feats[n].dtype)
+        def cot(n, w):  # (adv · w).sum() / numel(concat(clean, adv)), the whole batch's
+            numel = self.batch_rows(x.shape[0]) * feats[n][0].numel()
+            return (w / (2.0 * numel)).to(feats[n].dtype)
 
         w, prev = guidance[L4], L4
         for nxt in (*middle, L2):
@@ -222,15 +223,17 @@ class YAILA(MIFGSM):
             _, stages0, mid0 = self._forward_parts(x)
         mid0 = mid0.reshape(B, -1)
 
+        n_all = self.batch_rows(B)  # the means are over the whole batch
+
         def tap_loss(d):
             xadv = x + d
             logits, stages, mid = self._forward_parts(xadv)
             ce = softmax_cross_entropy(logits, y)
-            loss = ce.mean()
+            loss = self.batch_share(ce)
             for f0, f in zip(stages0, stages):
                 diff = powsign(f0, self.tap_alpha) - powsign(f, self.tap_alpha)
-                loss = loss + self.tap_lam * (diff ** 2).sum() / B
-            loss = loss + self.tap_yita * jax_abs(avg_pool_nhwc(x - xadv, self.tap_s)).sum() / B
+                loss = loss + self.tap_lam * (diff ** 2).sum() / n_all
+            loss = loss + self.tap_yita * jax_abs(avg_pool_nhwc(x - xadv, self.tap_s)).sum() / n_all
             return loss, (ce.detach(), (mid.reshape(B, -1) - mid0).detach())
 
         _, rec = self._ascend(x, self.epoch + 1, tap_loss)
@@ -242,7 +245,7 @@ class YAILA(MIFGSM):
 
         def proj(d):
             mid = self._forward_parts(x + d)[2]
-            return ((mid.reshape(B, -1) - mid0) * w).sum() / B, None
+            return ((mid.reshape(B, -1) - mid0) * w).sum() / n_all, None
 
         delta, _ = self._ascend(x, self.ila_epoch + 1, proj)
         return torch.clamp(x + delta, img_min, img_max) - x
@@ -298,15 +301,17 @@ class CFM(Attack):
         mix = []
         for layer in self.layers:
             C = state.extra["clean"][layer].shape[-1]
-            apply = draw(gen, torch.rand, (B,), device=x.device) < self.mix_prob
-            ratio = self.mix_lower + (self.mix_upper - self.mix_lower) * draw(
+            apply = self.draw_rows(gen, torch.rand, (B,), device=x.device) < self.mix_prob
+            ratio = self.mix_lower + (self.mix_upper - self.mix_lower) * self.draw_rows(
                 gen, torch.rand, (B, 1, 1, C), device=x.device)
-            mix.append((apply, ratio, draw(gen, torch.randperm, B, device=x.device)))
+            mix.append((apply, ratio,
+                        self.draw_rows(gen, torch.randperm, B, device=x.device)))
         return self.di_draws(gen, x), mix
 
     def get_grad(self, x, y, state: AttackState, gen):
         di, mix = self.mix_draws(gen, x, state)
-        clean = state.extra["clean"]
+        # the partners' clean features: any image of the whole batch
+        clean = {k: self.whole_batch(v) for k, v in state.extra["clean"].items()}
         taps = {}
         for layer, (apply, ratio, perm) in zip(self.layers, mix):
             def tap(f, c=clean[layer], apply=apply, ratio=ratio, perm=perm):
@@ -339,7 +344,7 @@ class FTM(CFM):
         """(DI draws, whether each image takes a layer's offset (B,) a layer,
         whether a layer's offset updates a layer)."""
         B = x.shape[0]
-        apply = [draw(gen, torch.rand, (B,), device=x.device) < self.mix_prob
+        apply = [self.draw_rows(gen, torch.rand, (B,), device=x.device) < self.mix_prob
                  for _ in self.layers]
         update = [draw(gen, torch.rand, (), device=x.device) < self.update_prob
                   for _ in self.layers]
@@ -435,7 +440,8 @@ class FFT(SU):
 
     def dropout_mask(self, gen, x):
         """Each pixel value kept with probability 1 − ``drop_rate``."""
-        return (draw(gen, torch.rand, x.shape, device=x.device) < 1.0 - self.drop_rate).to(x.dtype)
+        keep = self.draw_rows(gen, torch.rand, x.shape, device=x.device) < 1.0 - self.drop_rate
+        return keep.to(x.dtype)
 
     def keepres_draws(self, gen, x):
         return keepres_draws(gen, x.shape[1], device=x.device)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..attack import Attack, draw, softmax_cross_entropy
+from ..attack import Attack, softmax_cross_entropy
 from ..utils import img_max, img_min
 from . import objective_loop
 
@@ -74,7 +74,7 @@ class FIA(Attack):
 
     def perturb_input(self, x, gen, i):
         """Copy ``i``: ``x`` with each pixel value dropped at ``drop_rate``."""
-        keep = draw(gen, torch.rand, x.shape, device=x.device) < 1.0 - self.drop_rate
+        keep = self.draw_rows(gen, torch.rand, x.shape, device=x.device) < 1.0 - self.drop_rate
         return x * keep.to(x.dtype)
 
     def aggregate_grad(self, x, y, gen):
@@ -117,8 +117,8 @@ class RPA(FIA):
     def _patch_mask(self, x, gen, size: int):
         B, H, W, C = x.shape
         cells = (B, H // size, W // size, C)
-        keep = draw(gen, torch.rand, cells, device=x.device) < self.patch_prob
-        return patch_mask(x, keep, draw(gen, torch.rand, cells, device=x.device), size)
+        keep = self.draw_rows(gen, torch.rand, cells, device=x.device) < self.patch_prob
+        return patch_mask(x, keep, self.draw_rows(gen, torch.rand, cells, device=x.device), size)
 
 
 class FMAA(FIA):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import Attack, AttackState, draw
+from ..attack import Attack, AttackState
 from ..gradient.mifgsm import MIFGSM
 from . import objective_loop
 
@@ -33,16 +33,18 @@ class ILA(Attack):
     def run(self, x, y, gen):
         # phase 1: the inherited momentum attack gives the direction
         init_delta = super().run(x, y, gen)
+        B = x.shape[0]
         with torch.no_grad():
             mid_original = self.model.feature(x, self.feature_layer)[1]
             xdir = (self.model.feature(x + init_delta, self.feature_layer)[1]
-                    - mid_original).reshape(-1)
-            xnorm = xdir.norm() + 1e-12
+                    - mid_original).reshape(B, -1)
+            # the norm of the whole batch's displacement
+            xnorm = self.batch_sum(xdir * xdir, axis=0).sqrt() + 1e-12
             xhat = xdir / xnorm
 
         def proj_loss(d, state):
             mid_new = self.model.feature(x + d, self.feature_layer)[1]
-            return ((mid_new - mid_original).reshape(-1) * xhat).sum() / xnorm
+            return ((mid_new - mid_original).reshape(B, -1) * xhat).sum() / xnorm
 
         return objective_loop(self, x, y, gen, proj_loss)
 
@@ -65,7 +67,7 @@ class ILPD(MIFGSM):
 
     def feature_noise(self, gen, x, state):
         """A standard normal draw the shape of the batch."""
-        return draw(gen, torch.randn, x.shape, device=x.device)
+        return self.draw_rows(gen, torch.randn, x.shape, device=x.device)
 
     def get_grad(self, x, y, state: AttackState, gen):
         noisy = x + self.sigma * self.feature_noise(gen, x, state)

@@ -158,7 +158,7 @@ class TRAP(MIFGSM):
         in ±30°, a scale in [0.5, 1.5] and a shift in ±0.2; and whether the
         warp applies at all (probability ``probb``, for the whole batch)."""
         def u(lo, hi):
-            return lo + (hi - lo) * draw(gen, torch.rand, (B,), device=device)
+            return lo + (hi - lo) * self.draw_rows(gen, torch.rand, (B,), device=device)
 
         return {"ang": u(-90.0, 90.0) * math.pi / 180, "sx": u(-30.0, 30.0) * math.pi / 180,
                 "sy": u(-30.0, 30.0) * math.pi / 180, "sc": u(0.5, 1.5),
@@ -186,9 +186,13 @@ class TRAP(MIFGSM):
             d = delta.detach().requires_grad_(True)
             xt = self.rand_affine(x + d, **self.affine_draws(gen, x.shape[0], x.device))
             h_adv = self.model.feature(xt, self.feature_layer)[1]
-            xdir, ydir = (h_star - h_x).reshape(-1), (h_adv - h_x).reshape(-1)
-            xn, yn = xdir.norm() + 1e-12, ydir.norm() + 1e-12
-            loss = (xdir / xn * (ydir / yn)).sum() + (yn / xn) * self.coeff
+            # the displacements flattened over the whole batch (its norms
+            # and the dot product summed over every rank's rows)
+            B = x.shape[0]
+            xdir, ydir = (h_star - h_x).reshape(B, -1), (h_adv - h_x).reshape(B, -1)
+            xn = self.batch_sum(xdir * xdir, axis=0).sqrt() + 1e-12
+            yn = self.batch_sum(ydir * ydir, axis=0).sqrt() + 1e-12
+            loss = self.batch_sum(xdir * ydir, axis=0) / (xn * yn) + (yn / xn) * self.coeff
             (grad,) = torch.autograd.grad(-loss if self.targeted else loss, d)
             self.grad_evals += 1
             momentum = self.get_momentum(grad, momentum)

@@ -91,15 +91,17 @@ class POTRIP(LOGIT):
 
     @staticmethod
     def poincare_dis(a, b):
+        """Each row's Poincaré distance."""
         l2a = (a ** 2).sum(1)
         l2b = (b ** 2).sum(1)
         theta = 2 * ((a - b) ** 2).sum(1) / ((1 - l2a) * (1 - l2b))
-        return torch.arccosh(1.0 + theta + 1e-12).mean()
+        return torch.arccosh(1.0 + theta + 1e-12)
 
     @staticmethod
     def cos_dis(a, b):
+        """Each row's |cosine|."""
         ab = (a * b).sum(1).abs()
-        return (ab / (torch.sqrt((a ** 2).sum(1) * (b ** 2).sum(1)) + 1e-8)).mean()
+        return ab / (torch.sqrt((a ** 2).sum(1) * (b ** 2).sum(1)) + 1e-8)
 
     def prepare_labels(self, label):
         y = torch.as_tensor(label, device=self.device).long()
@@ -114,7 +116,13 @@ class POTRIP(LOGIT):
         y_src = F.one_hot(y[:, 0].repeat(n), lg.shape[-1]).to(lg.dtype)
         u = lg / lg.abs().sum(1, keepdim=True)
         v = torch.clamp(y_tar - 1e-5, 0.0, 1.0)
-        loss_po = self.poincare_dis(u, v)
-        loss_trip = torch.clamp(self.cos_dis(y_src, lg) - self.cos_dis(y_tar, lg)
+        # means over the copies of the whole batch: the triplet clamps one
+        # (rule 3), so on a rank each is summed over every rank's rows
+
+        def mean(rows):
+            return self.batch_mean(rows.reshape(n, -1))
+
+        loss_po = mean(self.poincare_dis(u, v))
+        loss_trip = torch.clamp(mean(self.cos_dis(y_src, lg)) - mean(self.cos_dis(y_tar, lg))
                                 + self.gamma, 0.0, 2.1)
         return -(loss_po + self.lamb * loss_trip)

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import draw
 from . import objective_loop
 from .fia import FIA, l2_normalize, label_prob_sum
 
@@ -83,7 +82,7 @@ class DANAA(NAA):
 
     def path_noise(self, gen, x, i):
         """Probe ``i``'s standard normal draw, the shape of the batch."""
-        return draw(gen, torch.randn, x.shape, device=x.device)
+        return self.draw_rows(gen, torch.randn, x.shape, device=x.device)
 
     def attribution_loss(self, feat, y_prime, agg_grad):
         attribution = (feat - y_prime) * agg_grad

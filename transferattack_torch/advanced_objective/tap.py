@@ -41,7 +41,7 @@ class TAP(Attack):
     def tap_loss(self, x, y, delta, orig_feats):
         xadv = x + delta
         logits, feats = self.model.apply_with_feats(xadv, "stage")
-        total = softmax_cross_entropy(logits, y).mean()
+        total = self.batch_share(softmax_cross_entropy(logits, y))
         for k, fo in orig_feats.items():
             diff = powsign(fo, self.alpha_tap) - powsign(feats[k], self.alpha_tap)
             total = total + self.lam * (diff ** 2).sum()

@@ -77,13 +77,33 @@ def draw(gen: torch.Generator, fn, *args, device=None, **kwargs) -> Tensor:
     return fn(*args, generator=gen, device=gen.device, **kwargs).to(device)
 
 
+def draw_rows(split, gen: torch.Generator, fn, *args, batch_axis: int = 0, copies: int = 1,
+              device=None, **kwargs) -> Tensor:
+    """:func:`draw` of a draw shaped by the batch: its size (the last
+    positional argument, a shape or ``randperm``'s length) holds the batch's
+    rows on ``batch_axis``, ``copies`` times over, copy-major.  ``split``
+    (an attack's ``data_split``) makes it the one-process draw, over the
+    whole batch's rows from the same generator in the same order, of which
+    this rank's rows are returned (rule 1 of
+    :mod:`transferattack_torch.parallel`); ``None`` is plain :func:`draw`."""
+    if split is None:
+        return draw(gen, fn, *args, device=device, **kwargs)
+    if copies > 1:
+        size = list(args[-1])
+        size[batch_axis:batch_axis + 1] = [copies, size[batch_axis] // copies]
+        return draw_rows(split, gen, fn, *args[:-1], tuple(size), batch_axis=batch_axis + 1,
+                         device=device, **kwargs).reshape(args[-1])
+    size = split.global_size(args[-1], batch_axis)
+    return split.rows(draw(gen, fn, *args[:-1], size, device=device, **kwargs), batch_axis)
+
+
 def global_l1_normalize(g: Tensor, split=None) -> Tensor:
     """Normalize by the global L1 norm (PC-I-FGSM's ``torch.norm(grad, p=1)``).
     ``split`` (an attack's ``data_split``) sums the norm over the real rows
     of every rank that holds a part of the batch."""
     if split is None:
         return g / (g.abs().sum() + 1e-12)
-    return g / (split.sum_rows(g.abs()) + 1e-12)
+    return g / (split.sum_real(g.abs(), axis=0) + 1e-12)
 
 
 def cosine_similarity(a: Tensor, b: Tensor) -> Tensor:
@@ -135,6 +155,10 @@ class Attack:
     # this rank's part of a batch split over ranks (``parallel.DataSplit``,
     # set by ``ShardedAttackRunner`` for one call); None: the whole batch
     data_split = None
+    # JAX's flag: the key prepares each batch on the host in a ``__call__``
+    # of its own, so ``ShardedAttackRunner`` runs it whole on every rank
+    # through that entry point
+    host_state = False
     # a process group whose ranks each take a contiguous slice of the
     # flattened (copies · batch) axis of ``get_logits`` (JAX's
     # ``copies_sharding``); None: every copy here
@@ -190,6 +214,99 @@ class Attack:
         self.forward_evals = 0
 
     # ------------------------------------------------------------------
+    # what crosses the rows of a batch (``data_split``'s rules 1-3)
+    # ------------------------------------------------------------------
+
+    def draw_rows(self, gen: torch.Generator, fn, *args, batch_axis: int = 0,
+                  copies: int = 1, device=None, **kwargs) -> Tensor:
+        """A draw shaped by the batch (:func:`draw_rows`): this rank's rows
+        of the one-process draw."""
+        return draw_rows(self.data_split, gen, fn, *args, batch_axis=batch_axis,
+                         copies=copies, device=device, **kwargs)
+
+    def draw_copy_rows(self, gen: torch.Generator, fn, shape, device=None) -> Tensor:
+        """A draw whose axis 0 holds copies of the batch's rows, copy-major
+        (an activation of the flattened copies): :meth:`draw_rows`."""
+        copies = 1 if self.data_split is None else shape[0] // self.data_split.n_local
+        return self.draw_rows(gen, fn, shape, copies=copies, device=device)
+
+    def whole_batch(self, t: Tensor, grad: bool = False, axis: int = 0) -> Tensor:
+        """``t``'s rows (on ``axis``) over the whole batch, where partners
+        are taken from it: ``t`` itself, or on a rank the real rows of every
+        rank gathered (``DataSplit.whole``; ``grad`` hands each rank its
+        rows' gradient from every rank's loss)."""
+        return t if self.data_split is None else self.data_split.whole(t, grad, axis)
+
+    def batch_rows(self, n: int) -> int:
+        """The whole batch's rows, of which this rank holds ``n``."""
+        return n if self.data_split is None else self.data_split.n_global
+
+    def rows_of(self, t: Tensor, axis: int = 0) -> Tensor:
+        """This rank's rows (on ``axis``) of ``t``, made over the whole
+        batch's :meth:`batch_rows` (``DataSplit.rows``); ``t`` itself
+        without a split."""
+        return t if self.data_split is None else self.data_split.rows(t, axis)
+
+    def over_batch(self, fn, t: Tensor, axis: int = 0) -> Tensor:
+        """``fn(t)`` where ``fn`` couples the rows of ``t`` (on ``axis``),
+        as IDAA's op blocks and local mixup do: on a rank, ``fn`` of the
+        whole batch's rows, gathered with their gradient, as one process
+        computes it, and this rank's rows of the result (rule 2)."""
+        if self.data_split is None:
+            return fn(t)
+        return self.rows_of(fn(self.data_split.whole(t, grad=True, axis=axis)), axis)
+
+    def batch_mean(self, values: Tensor, axis: int = -1) -> Tensor:
+        """The mean of ``values`` (``axis``: the batch's rows) over the
+        whole batch, where a statistic of the batch enters the loss
+        non-linearly: on a rank, summed over every rank's real rows
+        (``DataSplit.mean_rows``)."""
+        if self.data_split is None:
+            return values.mean()
+        return self.data_split.mean_rows(values, axis)
+
+    def batch_share(self, values: Tensor, axis: int = -1) -> Tensor:
+        """A loss that is a mean over the batch (``values``, ``axis``: the
+        batch's rows): on a rank, its share of the whole batch's mean
+        (``DataSplit.share``), whose gradient is the one-process one."""
+        if self.data_split is None:
+            return values.mean()
+        return self.data_split.share(values, axis)
+
+    def batch_sum(self, values: Tensor, axis: int = -1) -> Tensor:
+        """The sum of ``values`` (``axis``: the batch's rows) over the whole
+        batch, where such a sum enters the loss non-linearly (a norm over
+        the batch): on a rank, over every rank's real rows
+        (``DataSplit.sum_real``)."""
+        return values.sum() if self.data_split is None else self.data_split.sum_real(values, axis)
+
+    def batch_var(self, t: Tensor) -> Tensor:
+        """The variance of every element of ``t`` (rows on axis 0) over the
+        whole batch: on a rank, its moments over every rank's real rows."""
+        if self.data_split is None:
+            return t.var(unbiased=False)
+        mean = self.batch_mean(t, axis=0)
+        return self.batch_mean((t - mean) ** 2, axis=0)
+
+    def whole_loss(self, shares: Tensor) -> Tensor:
+        """The whole batch's loss values, detached, from this rank's shares
+        of them (:meth:`batch_share`, :meth:`get_loss`): summed over the
+        ranks (``DataSplit.reduce``), where a key reads a loss's value."""
+        if self.data_split is None:
+            return shares.detach()
+        return self.data_split.reduce(shares.detach())
+
+    def replicated(self, t: Tensor) -> Tensor:
+        """A tensor every row of the batch reads (a warp map, a weight
+        perturbation): on a rank, its gradient is summed over every rank's
+        rows (``copy_to_group``)."""
+        if self.data_split is None:
+            return t
+        from .parallel import copy_to_group
+
+        return copy_to_group(t, self.data_split.group)
+
+    # ------------------------------------------------------------------
     # hooks — override in subclasses
     # ------------------------------------------------------------------
 
@@ -199,12 +316,13 @@ class Attack:
             return torch.zeros_like(x)
         # drawn on the generator's device, so a CPU generator serves the card
         if self.norm == "linfty":
-            delta = draw(gen, torch.rand, x.shape, device=x.device) * (2 * self.eps) - self.eps
+            delta = (self.draw_rows(gen, torch.rand, x.shape, device=x.device)
+                     * (2 * self.eps) - self.eps)
         else:
-            delta = draw(gen, torch.randn, x.shape, device=x.device)
+            delta = self.draw_rows(gen, torch.randn, x.shape, device=x.device)
             flat = delta.reshape(x.shape[0], -1)
             n = flat.norm(dim=1, keepdim=True)
-            r = draw(gen, torch.rand, (x.shape[0], 1), device=x.device)
+            r = self.draw_rows(gen, torch.rand, (x.shape[0], 1), device=x.device)
             delta = (flat / (n + 1e-12) * r * self.eps).reshape(x.shape)
         return torch.clamp(x + delta, img_min, img_max) - x
 
@@ -235,11 +353,9 @@ class Attack:
 
     def get_loss(self, logits: Tensor, y: Tensor) -> Tensor:
         """Scalar loss, negated for targeted attacks.  It is a mean over
-        the batch: on a rank that holds a part of it, the mean over the
-        whole batch's rows (``data_split.loss_scale``)."""
-        ce = softmax_cross_entropy(logits, y).mean()
-        if self.data_split is not None:
-            ce = ce * self.data_split.loss_scale
+        the batch: on a rank that holds a part of it, its share of the
+        whole batch's mean (:meth:`batch_share`)."""
+        ce = self.batch_share(softmax_cross_entropy(logits, y))
         return -ce if self.targeted else ce
 
     def get_grad(self, x: Tensor, y: Tensor, state: AttackState,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import Attack, AttackState, draw, softmax_cross_entropy
+from ..attack import Attack, AttackState, draw, global_l1_normalize, softmax_cross_entropy
 from ..models import Surrogate
 from ..utils import cnn_model_paper, img_max, img_min
 
@@ -36,7 +36,7 @@ class _MultiModelAttack(Attack):
         self.K = len(self.members)
 
     def member_loss(self, logits, y):
-        ce = softmax_cross_entropy(logits, y).mean()
+        ce = self.batch_share(softmax_cross_entropy(logits, y))
         return -ce if self.targeted else ce
 
     def member_grad(self, point, y, k: int):
@@ -47,9 +47,10 @@ class _MultiModelAttack(Attack):
         return torch.autograd.grad(loss, point)[0]
 
     def member_ce(self, point, y, k: int):
-        """Member ``k``'s mean CE at ``point``, forward only."""
+        """Member ``k``'s mean CE over the whole batch at ``point``, forward
+        only."""
         self.forward_evals += 1
-        return softmax_cross_entropy(self.members[k].apply(point), y).mean()
+        return self.batch_mean(softmax_cross_entropy(self.members[k].apply(point), y))
 
 
 class ENS(Attack):
@@ -127,7 +128,7 @@ class CWA(_MultiModelAttack):
             momentum = self.decay * momentum + g / (n2 + 1e-12)
             inner_delta = self._project(x, inner_delta + self.inner_step_size * momentum)
         fake_grad = inner_delta - state.delta
-        return fake_grad / (fake_grad.abs().sum() + 1e-12), {"inner_momentum": momentum}
+        return global_l1_normalize(fake_grad, self.data_split), {"inner_momentum": momentum}
 
     def get_momentum(self, grad, momentum):
         # fake_grad is normalised already (``cwa.py:66``)
@@ -152,7 +153,7 @@ class AdaEA(_MultiModelAttack):
 
     def init_delta(self, x, gen):
         """Small Gaussian noise, unclipped (``adaea.py:50``)."""
-        return 0.001 * draw(gen, torch.randn, x.shape, device=x.device)
+        return 0.001 * self.draw_rows(gen, torch.randn, x.shape, device=x.device)
 
     def get_grad(self, x, y, state: AttackState, gen):
         K, xadv = self.K, x + state.delta
@@ -224,9 +225,11 @@ class SMER(_MultiModelAttack):
             with torch.no_grad():
                 logits = [self.members[i].apply(x + inner_delta) for i in range(self.K)]
             self.forward_evals += self.K
+            # every row reads the weights: the whole batch's CE (rule 3)
             w = weights.detach().requires_grad_(True)
-            ce = softmax_cross_entropy(sum(lg * w[i] / self.K for i, lg in enumerate(logits)),
-                                       y).mean()
+            wr = self.replicated(w)
+            ce = self.batch_mean(softmax_cross_entropy(
+                sum(lg * wr[i] / self.K for i, lg in enumerate(logits)), y))
             group = -ce if self.targeted else ce
             gw = torch.autograd.grad(-torch.log(group + 1e-12), w)[0]
             weights = weights - self.lr * (gw + self.weight_decay * weights)

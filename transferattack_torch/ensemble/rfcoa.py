@@ -127,6 +127,9 @@ class RFCoA(_MultiModelAttack):
     saliency map, then each Adam step); ``losses`` holds the last call's
     loss at its first and its last step."""
 
+    # its ``__call__`` drives the Adam mask/alpha loop on the host (JAX's flag)
+    host_state = True
+
     def __init__(self, model_name=None, epoch=300, eps=16 / 255, targeted=True,
                  random_start=True, norm="linfty", loss="crossentropy",
                  attack="RFCoA", **kwargs):

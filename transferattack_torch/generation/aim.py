@@ -179,6 +179,9 @@ class DiffAttackGD:
     """
 
     requires_batchsize: Optional[int] = None
+    # its ``__call__`` inverts and decodes each batch through the UNet: runs
+    # whole on every rank
+    host_state = True
 
     def __init__(self, model_name="resnet50", eps=None, diffusion_steps=20,
                  start_step=15, iterations=30, lr=0.01, recon_weight=0.1,

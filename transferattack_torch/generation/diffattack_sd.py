@@ -58,6 +58,8 @@ class SDDiffAttack:
     """
 
     requires_batchsize: Optional[int] = None
+    # its ``__call__`` tokenizes the prompts on the host (JAX's flag)
+    host_state = True
 
     def __init__(self, model_name="resnet50", diffusion_steps=20, start_step=15, iterations=30,
                  lr=0.01, guidance=2.5, attack_weight=10.0, cross_attn_weight=10000.0,

@@ -45,6 +45,9 @@ class GenerativeAttack:
     """Base: ``delta = clip(G(x) − x, ±eps)``; per-target-class checkpoints.
     ``forwards`` counts the generator forwards of the instance's calls."""
 
+    # one generator forward a batch, prepared in a ``__call__`` of its own
+    # (checkpoint, target class): runs whole on every rank
+    host_state = True
     ckpt_prefix = ""
     targeted_generators = False   # one generator per generation target class
     smooth = False

@@ -41,8 +41,9 @@ class FGSRA(Attack):
         """All ``max_iter`` (gauss, mask) draws of one iteration."""
         shape = (self.max_iter,) + x.shape
         r = self.eps * self.beta
-        gauss = torch.rand(shape, generator=gen, device=x.device) * (2 * r) - r
-        mask = torch.rand(shape, generator=gen, device=x.device) * (2 * self.rho) + (1 - self.rho)
+        gauss = self.draw_rows(gen, torch.rand, shape, batch_axis=1, device=x.device) * (2 * r) - r
+        mask = (self.draw_rows(gen, torch.rand, shape, batch_axis=1, device=x.device)
+                * (2 * self.rho) + (1 - self.rho))
         return gauss, mask
 
     def relevance_grad(self, xadv, y, gauss, mask):

@@ -63,12 +63,13 @@ class Foolmix(Attack):
 
     def pixel_blocks(self, gen, x, step):
         """N(0, 0.1²) pixel blocks, (n, B, H, W, C)."""
-        return torch.randn((self.n,) + x.shape, generator=gen, device=x.device) * 0.1
+        return self.draw_rows(gen, torch.randn, (self.n,) + x.shape, batch_axis=1,
+                              device=x.device) * 0.1
 
     def other_labels(self, gen, batch, step):
         """Uniform random class labels, (n, z, B)."""
-        return torch.randint(0, self.model.num_classes, (self.n, self.z, batch),
-                             generator=gen, device=gen.device)
+        return self.draw_rows(gen, torch.randint, 0, self.model.num_classes,
+                              (self.n, self.z, batch), batch_axis=2, device=gen.device)
 
     def step(self, x, y, state: AttackState, gen):
         delta = state.delta

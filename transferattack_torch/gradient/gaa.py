@@ -34,7 +34,7 @@ class GAA(Attack):
 
     def neighbor_noise(self, gen, x, state):
         """One uniform draw in the (-xi, xi) box."""
-        return torch.rand(x.shape, generator=gen, device=x.device) * (2 * self.xi) - self.xi
+        return self.draw_rows(gen, torch.rand, x.shape, device=x.device) * (2 * self.xi) - self.xi
 
     def get_grad(self, x, y, state: AttackState, gen):
         def samples(g, k):

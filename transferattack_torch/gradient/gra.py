@@ -37,7 +37,7 @@ class GRA(Attack):
 
     def neighbor_noise(self, gen, x, state):
         """One uniform draw in the (-beta·eps, beta·eps) box."""
-        return (torch.rand(x.shape, generator=gen, device=x.device)
+        return (self.draw_rows(gen, torch.rand, x.shape, device=x.device)
                 * (2 * self.radius) - self.radius)
 
     def step(self, x, y, state: AttackState, gen):

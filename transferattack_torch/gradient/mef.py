@@ -35,7 +35,8 @@ class MEF(Attack):
     def neighbor_noise(self, gen, x, state):
         """All neighbours' uniform draws in (-gamma, gamma), (num_neighbor, *x.shape)."""
         shape = (self.num_neighbor,) + x.shape
-        return torch.rand(shape, generator=gen, device=x.device) * (2 * self.gamma) - self.gamma
+        return (self.draw_rows(gen, torch.rand, shape, batch_axis=1, device=x.device)
+                * (2 * self.gamma) - self.gamma)
 
     def get_grad(self, x, y, state: AttackState, gen):
         noise = self.neighbor_noise(gen, x, state)

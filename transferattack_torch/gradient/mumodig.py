@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from ..attack import AttackState, draw
+from ..attack import AttackState, draw, draw_rows
 from ..ops.image import rotate, scale_and_translate
 from .mifgsm import MIFGSM
 
@@ -33,9 +33,10 @@ def lb_quantize(x, u, region_num: int):
     return lefts.gather(1, idx).reshape(B, C, H, W).permute(0, 2, 3, 1)
 
 
-def transform_draws(gen, x) -> dict:
+def transform_draws(gen, x, split=None) -> dict:
     """One random transform: branch 0 is one of vshift, hshift, vflip, hflip
-    and rotate (``op``), branch 1 a resize into a 245 canvas and pad."""
+    and rotate (``op``), branch 1 a resize into a 245 canvas and pad
+    (``split``: an attack's ``data_split``, for the per-image angles)."""
     B, H, W, C = x.shape
     dev = x.device
     if int(draw(gen, torch.randint, 0, 2, (), device=dev)) == 0:
@@ -44,7 +45,7 @@ def transform_draws(gen, x) -> dict:
         if op in (0, 1):
             d["shift"] = int(draw(gen, torch.randint, 0, H if op == 0 else W, (), device=dev))
         elif op == 4:
-            d["angle"] = draw(gen, torch.rand, B, device=dev) * 90.0 - 45.0
+            d["angle"] = draw_rows(split, gen, torch.rand, B, device=dev) * 90.0 - 45.0
         return d
     lo, hi = min(W, 245), max(W, 245)
     inter = (draw(gen, torch.randint, lo, hi, (), device=dev) if hi > lo
@@ -91,9 +92,13 @@ class MUMODIG(MIFGSM):
         for each of the ``N_trans`` copies its transform and its baseline's
         fractions."""
         dev = x.device
-        n_u = (x.shape[0] * x.shape[3], self.region_num - 1)
-        base = [draw(gen, torch.rand, n_u, device=dev) for _ in range(self.N_base)]
-        trans = [(transform_draws(gen, x), draw(gen, torch.rand, n_u, device=dev))
+        n_u = (x.shape[0], x.shape[3], self.region_num - 1)  # (B·C, R − 1) by rows
+
+        def fractions():
+            return self.draw_rows(gen, torch.rand, n_u, device=dev).reshape(-1, n_u[-1])
+
+        base = [fractions() for _ in range(self.N_base)]
+        trans = [(transform_draws(gen, x, self.data_split), fractions())
                  for _ in range(self.N_trans)]
         return {"base": base, "trans": trans}
 

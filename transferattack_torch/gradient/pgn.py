@@ -31,7 +31,8 @@ class PGN(Attack):
 
     def neighbor_noise(self, gen, x, state):
         """One uniform draw in the (-beta·eps, beta·eps) box."""
-        return torch.rand(x.shape, generator=gen, device=x.device) * (2 * self.zeta) - self.zeta
+        return (self.draw_rows(gen, torch.rand, x.shape, device=x.device)
+                * (2 * self.zeta) - self.zeta)
 
     def get_grad(self, x, y, state: AttackState, gen):
         def samples(g, k):

@@ -39,7 +39,7 @@ class RAP(Attack):
         """The inner loop's start, uniform in (-epsilon_n, epsilon_n), or zero."""
         if not self.inner_random_start:
             return torch.zeros_like(point)
-        return (torch.rand(point.shape, generator=gen, device=point.device)
+        return (self.draw_rows(gen, torch.rand, point.shape, device=point.device)
                 * (2 * self.epsilon_n) - self.epsilon_n)
 
     def get_n_rap(self, point, y, state, gen):

@@ -30,7 +30,7 @@ class SMIFGRM(Attack):
 
     def neighbor_noise(self, gen, x, state):
         """One step of the walk: a uniform draw in (-radius, radius)."""
-        return (torch.rand(x.shape, generator=gen, device=x.device)
+        return (self.draw_rows(gen, torch.rand, x.shape, device=x.device)
                 * (2 * self.radius) - self.radius)
 
     def rescale(self, g):

@@ -9,13 +9,14 @@ import dataclasses
 
 import torch
 
-from ..attack import Attack, AttackState
+from ..attack import Attack, AttackState, draw_rows
 from ..utils import img_max, img_min
 
 
-def uniform_start(gen, x, eps):
-    """A uniform(-eps, eps) random start, box-clipped."""
-    delta = torch.rand(x.shape, generator=gen, device=x.device) * (2 * eps) - eps
+def uniform_start(gen, x, eps, split=None):
+    """A uniform(-eps, eps) random start, box-clipped (``split``: an
+    attack's ``data_split``, whose rows of the one-process draw it takes)."""
+    delta = draw_rows(split, gen, torch.rand, x.shape, device=x.device) * (2 * eps) - eps
     return torch.clamp(x + delta, img_min, img_max) - x
 
 
@@ -38,7 +39,7 @@ class RGMIFGSM(Attack):
 
     def restart_delta(self, gen, x, idx):
         """The random start of direction ``idx``."""
-        return uniform_start(gen, x, self.eps)
+        return uniform_start(gen, x, self.eps, self.data_split)
 
     def run(self, x, y, gen):
         state = self.init_state(x, y, gen)
@@ -73,7 +74,7 @@ class DualMIFGSM(Attack):
 
     def restart_delta(self, gen, x, state, idx=0):
         """This iteration's random start (``idx``: the direction)."""
-        return uniform_start(gen, x, self.eps)
+        return uniform_start(gen, x, self.eps, self.data_split)
 
     def dual_step(self, x, state: AttackState, grad, delta) -> AttackState:
         momentum = self.get_momentum(grad, state.momentum)

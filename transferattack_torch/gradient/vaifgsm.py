@@ -31,7 +31,7 @@ class VAIFGSM(Attack):
 
     def sample_aux_labels(self, gen, y, num_classes):
         """(aux_num, B) distinct random labels, none the true class."""
-        scores = torch.rand((y.shape[0], num_classes), generator=gen, device=y.device)
+        scores = self.draw_rows(gen, torch.rand, (y.shape[0], num_classes), device=y.device)
         scores[torch.arange(y.shape[0], device=y.device), y] = float("inf")
         return torch.topk(-scores, self.aux_num, dim=1).indices.T
 

@@ -33,7 +33,7 @@ class VMIFGSM(Attack):
 
     def neighbor_noise(self, gen, x, state):
         """One uniform draw in the (-radius, radius) box around the point."""
-        return (torch.rand(x.shape, generator=gen, device=x.device)
+        return (self.draw_rows(gen, torch.rand, x.shape, device=x.device)
                 * (2 * self.radius) - self.radius)
 
     def step(self, x, y, state: AttackState, gen):

@@ -13,12 +13,13 @@ kernel sums the smoothed RGB channels into one map.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from ..attack import draw
+from ..attack import draw, draw_rows
 from ..ops.image import affine_warp, scale_and_translate
 from .dim import resize_pad, resize_pad_draws
 
@@ -27,14 +28,16 @@ AITL_OPS = ("crop", "brightness", "color", "translate_x", "translate_y", "admix"
             "sharpness", "shear_x", "scale", "rotate", "admix_and_scale", "saturation")
 
 
-def op_draws(gen, index: int, x_shape, device=None) -> dict:
+def op_draws(gen, index: int, x_shape, device=None, split=None) -> dict:
     """The random values of op ``index`` (1-based) on a batch of
-    ``x_shape``."""
+    ``x_shape`` (``split``: an attack's ``data_split``, whose rows of the
+    per-image draws it takes)."""
     B, H, W = x_shape[:3]
     op = AITL_OPS[index - 1]
 
-    def u(lo, hi, shape=()):
-        return draw(gen, torch.rand, shape, device=device) * (hi - lo) + lo
+    def u(lo, hi, shape=()):  # a shape other than () has the batch's rows on axis 0
+        fn = draw if shape == () else functools.partial(draw_rows, split)
+        return fn(gen, torch.rand, shape, device=device) * (hi - lo) + lo
 
     def pow2():
         return 2.0 ** draw(gen, torch.randint, 0, 5, (), device=device).float()
@@ -50,7 +53,7 @@ def op_draws(gen, index: int, x_shape, device=None) -> dict:
     if op in ("shear_x", "shear_y"):
         return {"f": u(-0.5, 0.5)}
     if op == "admix":
-        return {"perm": draw(gen, torch.randperm, B, device=device)}
+        return {"perm": draw_rows(split, gen, torch.randperm, B, device=device)}
     if op == "resize":
         return resize_pad_draws(gen, H, 1.15, 1.0, device)
     if op == "cutout":
@@ -69,7 +72,7 @@ def op_draws(gen, index: int, x_shape, device=None) -> dict:
     if op == "rotate":
         return {"angle": u(-math.pi / 6, math.pi / 6)}
     if op == "admix_and_scale":
-        return {"perm": draw(gen, torch.randperm, B, device=device), "s": pow2()}
+        return {"perm": draw_rows(split, gen, torch.randperm, B, device=device), "s": pow2()}
     if op == "saturation":
         return {"f": u(0.0, 11.0)}
     raise KeyError(index)
@@ -120,8 +123,11 @@ def hsv_to_rgb(hsv):
                         pick(p, p, t, v, v, q)], dim=-1)
 
 
-def apply_op(x, index: int, draws: dict):
-    """Op ``index`` (1-based) on NHWC ``x`` with its draws."""
+def apply_op(x, index: int, draws: dict, whole=None):
+    """Op ``index`` (1-based) on NHWC ``x`` with its draws; ``whole`` gives
+    the whole batch's rows of ``x`` that Admix's partners index (``x``
+    itself by default)."""
+    partners = x if whole is None or "perm" not in draws else whole(x)
     op = AITL_OPS[index - 1]
     H, W = x.shape[1], x.shape[2]
     if op == "crop":
@@ -136,7 +142,7 @@ def apply_op(x, index: int, draws: dict):
     if op == "translate_y":
         return _affine(x, 1.0, 0.0, 0.0, 0.0, 1.0, draws["t"])
     if op == "admix":
-        return torch.clamp(x + 0.2 * x[draws["perm"]], 0.0, 1.0)
+        return torch.clamp(x + 0.2 * partners[draws["perm"]], 0.0, 1.0)
     if op == "shear_y":
         return _affine(x, 1.0, 0.0, 0.0, draws["f"], 1.0, 0.0)
     if op == "resize":
@@ -178,7 +184,7 @@ def apply_op(x, index: int, draws: dict):
         c, s = torch.cos(ang), torch.sin(ang)
         return _affine(x, c, -s, 0.0, s, c, 0.0)
     if op == "admix_and_scale":
-        return torch.clamp((x + 0.2 * x[draws["perm"]]) / draws["s"], 0.0, 1.0)
+        return torch.clamp((x + 0.2 * partners[draws["perm"]]) / draws["s"], 0.0, 1.0)
     if op == "saturation":  # ColorJitter(saturation=10): U[0, 11] against gray
         return _blend(_gray(x).expand(x.shape), x, draws["f"])
     raise KeyError(index)

@@ -96,14 +96,15 @@ class DeCowA(Attack):
 
     def _model_loss(self, pts, y):
         return self.get_loss(self.model.apply(pts)[None], y)
-
     def get_grad(self, x, y, state: AttackState, gen):
         xadv = (x + state.delta).detach()
         total = torch.zeros_like(x)
         for nm0 in self.noise_maps(gen, x, state):
             # one step on the map that makes the warp harder to attack
+            # every row reads the map: its gradient summed over the ranks
             nm = nm0.clone().requires_grad_(True)
-            (g_nm,) = torch.autograd.grad(self._model_loss(self.warp(xadv, nm), y), nm)
+            loss = self._model_loss(self.warp(xadv, self.replicated(nm)), y)
+            (g_nm,) = torch.autograd.grad(loss, nm)
             nm = (nm0 - self.rho * g_nm).detach()
             delta = state.delta.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(self._model_loss(self.warp(x + delta, nm), y), delta)

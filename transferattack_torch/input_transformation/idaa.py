@@ -251,7 +251,7 @@ class IDAA(Attack):
 
     def init_delta(self, x, gen):
         """``w`` ~ N(0, 1)."""
-        return draw(gen, torch.randn, x.shape, device=x.device)
+        return self.draw_rows(gen, torch.randn, x.shape, device=x.device)
 
     def init_extra(self, x, y):
         return {"m": torch.zeros_like(x), "v": torch.zeros_like(x)}
@@ -296,13 +296,21 @@ class IDAA(Attack):
         lb, ub = self._bounds(x)
         y_src, y_tgt = (y[:, 0], y[:, 1]) if self.targeted else (y, y)
         ws = state.delta.detach()[None].expand((n,) + x.shape).clone().requires_grad_(True)
-        flat = (x[None] + self._pert(ws, lb, ub)).reshape((n * B,) + x.shape[1:])
-        flat = self.augment(flat, gen, state.step)
-        lf = self.model.apply(flat).float()
+        # the op blocks and the mixup partners run over the flattened copies
+        # of the whole batch
+        points = self.over_batch(
+            lambda p: self.augment(p.reshape((-1,) + x.shape[1:]), gen,
+                                   state.step).reshape(p.shape),
+            x[None] + self._pert(ws, lb, ub), axis=1)
+        lf = self.model.apply(points.reshape((n * B,) + x.shape[1:])).float()
         self.grad_evals += n
-        loss = softmax_cross_entropy(lf, y_tgt.repeat(n)).mean()
+
+        def ce(labels):
+            return self.batch_share(softmax_cross_entropy(lf, labels.repeat(n)).reshape(n, B))
+
+        loss = ce(y_tgt)
         if self.targeted:
-            loss = loss - self.gamma * softmax_cross_entropy(lf, y_src.repeat(n)).mean()
+            loss = loss - self.gamma * ce(y_src)
         (g,) = torch.autograd.grad(loss, ws)
         # each (copy, image) L1-mean normalized before the copy average
         gn = g.abs().mean(dim=(2, 3, 4), keepdim=True)
@@ -411,13 +419,13 @@ class EverywhereAttack(Attack):
 
     def layer_perm(self, gen, i, B, step):
         """Layer ``i``'s batch permutation of the clean partners."""
-        return draw(gen, torch.randperm, B, device=self.device)
+        return self.draw_rows(gen, torch.randperm, B, device=self.device)
 
     def mix_draws(self, gen, i, n, B, C, dtype, step):
         """(whether layer ``i`` mixes, its channel ratios (n, B, 1, 1, C))."""
         do = draw(gen, torch.rand, (), device=self.device) < self.mix_prob
-        ratio = draw(gen, torch.rand, (n, B, 1, 1, C), device=self.device).to(dtype) \
-            * self.mix_upper
+        ratio = self.draw_rows(gen, torch.rand, (n, B, 1, 1, C), batch_axis=1,
+                               device=self.device).to(dtype) * self.mix_upper
         return do, ratio
 
     def di(self, flat, gen, step):
@@ -431,7 +439,8 @@ class EverywhereAttack(Attack):
         groups = torch.cat([torch.zeros(1, dtype=sel.dtype, device=sel.device), sel + 1])
         taps = {}
         for i, layer in enumerate(self.layers):
-            clean = state.extra[f"clean_{layer}"]
+            # the partners' clean features: any image of the whole batch
+            clean = self.whole_batch(state.extra[f"clean_{layer}"], axis=1)
             perm = self.layer_perm(gen, i, B, state.step)
             do, ratio = self.mix_draws(gen, i, n, B, clean.shape[-1], x.dtype, state.step)
 

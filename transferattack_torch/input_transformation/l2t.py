@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import Attack, AttackState, draw
+from ..attack import Attack, AttackState, draw, draw_rows
 from ..ops.blocks import bsr_lengths, permute_strips
 from ..ops.dct import dct_2d, idct_2d
 from ..ops.image import rotate, scale_and_translate, translate
@@ -24,16 +24,23 @@ from .dim import resize_pad, resize_pad_draws
 NUM_OPS = 10
 
 
-def op_draws(gen, op_idx: int, x) -> dict:
-    """The draws op ``op_idx`` takes on the batch ``x``."""
+def op_draws(gen, op_idx: int, x, split=None) -> dict:
+    """The draws op ``op_idx`` takes on the batch ``x`` (``split``: an
+    attack's ``data_split``, whose rows of the per-image draws it takes)."""
     B, H, W, C = x.shape
     dev = x.device
 
     def uniform(shape, lo, hi):
         return draw(gen, torch.rand, shape, device=dev) * (hi - lo) + lo
 
+    def rows(fn, *args):  # a draw with the batch's rows on axis 0
+        return draw_rows(split, gen, fn, *args, device=dev)
+
+    def uniform_rows(shape, lo, hi):
+        return rows(torch.rand, shape) * (hi - lo) + lo
+
     if op_idx == 0:
-        return {"angle": uniform((B,), -0.2, 0.2)}
+        return {"angle": uniform_rows((B,), -0.2, 0.2)}
     if op_idx == 1:
         return {"power": draw(gen, torch.randint, 0, 5, (), device=dev)}
     if op_idx == 2:
@@ -42,23 +49,24 @@ def op_draws(gen, op_idx: int, x) -> dict:
         return {"edges": bsr_lengths(gen, H, 3, dev),
                 "perm": draw(gen, torch.randperm, 3, device=dev)}
     if op_idx == 4:
-        return {"perm": draw(gen, torch.randperm, B, device=dev)}
+        return {"perm": rows(torch.randperm, B)}
     if op_idx == 5:
-        return {"keep": draw(gen, torch.rand, x.shape, device=dev) < 0.9}
+        return {"keep": rows(torch.rand, x.shape) < 0.9}
     if op_idx == 6:
         return {"cell": draw(gen, torch.rand, (4, 4), device=dev) < 0.75}
     if op_idx == 7:
-        return {"gauss": draw(gen, torch.randn, x.shape, device=dev),
-                "mask": uniform(x.shape, 0.5, 1.5)}
+        return {"gauss": rows(torch.randn, x.shape), "mask": uniform_rows(x.shape, 0.5, 1.5)}
     if op_idx == 8:
         side = uniform((), 0.8, 1.0)
         return {"side": side, "ty": uniform((), 0.0, 1.0) * (1 - side) * H,
                 "tx": uniform((), 0.0, 1.0) * (1 - side) * W}
-    return {"tx": uniform((B,), -0.1, 0.1), "ty": uniform((B,), -0.1, 0.1)}
+    return {"tx": uniform_rows((B,), -0.1, 0.1), "ty": uniform_rows((B,), -0.1, 0.1)}
 
 
-def apply_l2t_op(x, op_idx: int, draws: dict, eps: float):
-    """Op ``op_idx`` on ``x`` from its draws."""
+def apply_l2t_op(x, op_idx: int, draws: dict, eps: float, whole=None):
+    """Op ``op_idx`` on ``x`` from its draws; ``whole`` gives the whole
+    batch's rows of ``x`` that Admix's partners index (``x`` itself by
+    default)."""
     B, H, W, C = x.shape
     d = draws
     if op_idx == 0:
@@ -70,7 +78,7 @@ def apply_l2t_op(x, op_idx: int, draws: dict, eps: float):
     if op_idx == 3:
         return x[:, permute_strips(d["edges"], d["perm"], H)]
     if op_idx == 4:
-        return x + 0.2 * x[d["perm"]].detach()
+        return x + 0.2 * (x if whole is None else whole(x))[d["perm"]].detach()
     if op_idx == 5:
         return x * d["keep"].to(x.dtype)
     if op_idx == 6:
@@ -103,7 +111,8 @@ class L2T(Attack):
 
     def apply_op(self, x, op_idx: int, gen, step, copy, slot):
         """One op of a chain (``step``/``copy``/``slot`` index the draw)."""
-        return apply_l2t_op(x, op_idx, op_draws(gen, op_idx, x), self.eps)
+        return apply_l2t_op(x, op_idx, op_draws(gen, op_idx, x, self.data_split), self.eps,
+                            self.whole_batch)
 
     def sample_ids(self, gen, aug_param, step, copy):
         """``ops_num`` categorical draws from softmax(θ), with replacement."""
@@ -130,6 +139,6 @@ class L2T(Attack):
         p = torch.softmax(theta, 0)
         chain_p = torch.stack([torch.prod(p[torch.tensor(ids, device=p.device)])
                                for ids in ids_all])
-        (ag,) = torch.autograd.grad((chain_p * losses.detach()).sum(), theta)
+        (ag,) = torch.autograd.grad((chain_p * self.whole_loss(losses)).sum(), theta)
         new_param = aug_param + self.aug_lr * ag / self.num_scale
         return g / self.num_scale, {"aug_param": new_param}

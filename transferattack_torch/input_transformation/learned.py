@@ -18,6 +18,7 @@ AITL's :meth:`AITL.transform_lists` and :meth:`AITL.list_draws`, LPM's
 """
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..attack import AttackState, draw, l1_normalize, mean_over_draws, softmax_cross_entropy
+from ..attack import AttackState, l1_normalize, mean_over_draws, softmax_cross_entropy
 from ..gradient.mifgsm import MIFGSM
 from ..models import (IMAGENET_MEAN, IMAGENET_STD, aux_path, load_aux, load_npz, make_model,
                       nhwc, record_fallback)
@@ -196,8 +197,9 @@ class STM(MIFGSM):
         """``k`` styles' standard normals (k, B, 100) and noises
         (k, B, H, W, C), U(±β·eps)."""
         r = self.eps * self.beta
-        z = draw(gen, torch.randn, (k, x.shape[0], 100), device=x.device)
-        noise = draw(gen, torch.rand, (k,) + tuple(x.shape), device=x.device) * (2 * r) - r
+        z = self.draw_rows(gen, torch.randn, (k, x.shape[0], 100), batch_axis=1, device=x.device)
+        noise = (self.draw_rows(gen, torch.rand, (k,) + tuple(x.shape), batch_axis=1,
+                                device=x.device) * (2 * r) - r)
         return z, noise
 
     def get_grad(self, x, y, state: AttackState, gen):
@@ -329,8 +331,8 @@ class PAM(MIFGSM):
         n = self.num_aug_path * self.num_scale
         logits = self.get_logits(torch.cat([xadv[None], self.copies(xadv, ratios)]))
         self.grad_evals += n + 1
-        ce_copies = softmax_cross_entropy(logits[1:], y).mean()
-        loss = (softmax_cross_entropy(logits[0], y).mean()
+        ce_copies = self.batch_share(softmax_cross_entropy(logits[1:], y))
+        loss = (self.batch_share(softmax_cross_entropy(logits[0], y))
                 + n * (-ce_copies if self.targeted else ce_copies))
         return torch.autograd.grad(loss, delta)[0], {}
 
@@ -414,7 +416,7 @@ class AITL(MIFGSM):
         [0, 20), from a generator seeded by ``seed`` and a salt of the
         data: batches differ, iterations within one agree."""
         # in fp64, so that the card's and the CPU's sums give one salt
-        salt = int(torch.remainder(x.detach().double().abs().sum() * 1e4, 1e6))
+        salt = int(torch.remainder(self.whole_batch(x).double().abs().sum() * 1e4, 1e6))
         gen = torch.Generator().manual_seed((self.seed + 131) * 1_000_003 + salt)
         return torch.randint(0, 20, (self.num_lists, self.num_ops), generator=gen)
 
@@ -422,7 +424,7 @@ class AITL(MIFGSM):
         """Each combo's latent moved ``refine_steps`` sign steps up the
         predictor's estimate at ``x[:1]``, decoded to 0-based op indices."""
         onehot = F.one_hot(idx0.long().to(x.device), 20).float().reshape(idx0.shape[0], -1)
-        img = x[:1].permute(0, 3, 1, 2)
+        img = self.whole_batch(x)[:1].permute(0, 3, 1, 2)
         with torch.no_grad():
             h = self.encoder(onehot)
         for _ in range(self.refine_steps):
@@ -441,7 +443,8 @@ class AITL(MIFGSM):
 
     def list_draws(self, gen, x, state: AttackState, lists):
         """Each list's ops' draws: ``[[draws of op j] for each list]``."""
-        return [[op_draws(gen, op, x.shape, x.device) for op in ops] for ops in lists]
+        return [[op_draws(gen, op, x.shape, x.device, self.data_split) for op in ops]
+                for ops in lists]
 
     def get_grad(self, x, y, state: AttackState, gen):
         lists = state.extra["aitl_lists"]
@@ -452,7 +455,7 @@ class AITL(MIFGSM):
         for i, ops in enumerate(lists):
             pt = points[i]
             for op, d in zip(ops, draws[i]):
-                pt = apply_op(pt, op, d)
+                pt = apply_op(pt, op, d, functools.partial(self.whole_batch, grad=True))
             views.append(pt)
         logits = self.get_logits(torch.stack(views))
         self.grad_evals += len(lists)
@@ -485,6 +488,8 @@ class LPM(MIFGSM):
     """
 
     requires_batchsize = 1
+    # its ``__call__`` runs the genetic mask search on the host (JAX's flag)
+    host_state = True
 
     def __init__(self, model_name="resnet50",
                  gray_models=("resnet50", "vgg16", "densenet201"),

@@ -62,17 +62,17 @@ class MFI(MIFGSM):
         ``num_sample`` mixes."""
         dev = x.device
         n = self.num_sample
-        perms = torch.stack([draw(gen, torch.randperm, x.shape[0], device=dev)
+        perms = torch.stack([self.draw_rows(gen, torch.randperm, x.shape[0], device=dev)
                              for _ in range(n)])
         alphas = draw(gen, torch.rand, n, device=dev)
-        noises = draw(gen, torch.randn, (n,) + x.shape, device=dev)
+        noises = self.draw_rows(gen, torch.randn, (n,) + x.shape, batch_axis=1, device=dev)
         return perms, alphas, noises
 
     def mix_one(self, x, perm, alpha, noise):
         """One mix from its draws (JAX's ``_mix_one``)."""
         H, W = x.shape[1], x.shape[2]
         X = _fft2_shift(x)
-        M = _fft2_shift(x[perm].detach())
+        M = _fft2_shift(self.whole_batch(x)[perm].detach())
         mask_l = torch.from_numpy(_radial_mask(H, W, self.mask_radius,
                                                self.mfi_type == "smfi")).to(x.device)
         mask_h = 1.0 - mask_l

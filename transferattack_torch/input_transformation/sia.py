@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import AttackState, draw
+from ..attack import AttackState, draw, draw_rows
 from ..gradient.mifgsm import MIFGSM
 from ..ops.blocks import block_bounds, block_id, random_cuts
 
@@ -19,9 +19,10 @@ from ..ops.blocks import block_bounds, block_id, random_cuts
 NUM_OPS = 7
 
 
-def sia_draws(gen, x, num_block: int, eps_noise: float = 16 / 255) -> dict:
+def sia_draws(gen, x, num_block: int, eps_noise: float = 16 / 255, split=None) -> dict:
     """One copy's draws: the cut edges of rows and columns, an op, two
-    fractional shifts and a scale a cell, and a noise image."""
+    fractional shifts and a scale a cell, and a noise image (``split``: an
+    attack's ``data_split``, whose rows of the one-process noise it takes)."""
     B, H, W, C = x.shape
     dev = x.device
     cells = (num_block, num_block)
@@ -32,7 +33,8 @@ def sia_draws(gen, x, num_block: int, eps_noise: float = 16 / 255) -> dict:
         "shift_v": draw(gen, torch.rand, cells, device=dev),
         "shift_h": draw(gen, torch.rand, cells, device=dev),
         "scale": draw(gen, torch.rand, cells, device=dev),
-        "noise": draw(gen, torch.rand, x.shape, device=dev) * (2 * eps_noise) - eps_noise,
+        "noise": (draw_rows(split, gen, torch.rand, x.shape, device=dev)
+                  * (2 * eps_noise) - eps_noise),
     }
 
 
@@ -61,11 +63,12 @@ def sia_apply(x, h_edges, w_edges, ops, shift_v, shift_h, scale, noise):
     return torch.where((op == 6)[None, :, :, None], noisy, out)
 
 
-def sia_blocktransform(x, gen, num_block: int, eps_noise: float = 16 / 255, params=None):
+def sia_blocktransform(x, gen, num_block: int, eps_noise: float = 16 / 255, params=None,
+                       split=None):
     """One SIA copy; ``params`` (the keys of :func:`sia_draws`) bypasses
     the draws, as JAX's ``params=`` does."""
     if params is None:
-        params = sia_draws(gen, x, num_block, eps_noise)
+        params = sia_draws(gen, x, num_block, eps_noise, split)
     return sia_apply(x, **params)
 
 
@@ -86,5 +89,5 @@ class SIA(MIFGSM):
         return self.num_scale
 
     def transform(self, x, state: AttackState, gen):
-        return torch.stack([sia_blocktransform(x, gen, self.num_block)
+        return torch.stack([sia_blocktransform(x, gen, self.num_block, split=self.data_split)
                             for _ in range(self.num_scale)])

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import AttackState, draw
+from ..attack import AttackState
 from ..gradient.mifgsm import MIFGSM
 
 
@@ -18,11 +18,13 @@ def scale_copies(x, num_scale: int):
     return scales.reshape((-1,) + (1,) * x.ndim) * x[None]
 
 
-def admix(x, perms, strength: float, num_scale: int):
-    """Admix's apply step: ``x + strength·x[perm]`` (the partner image
-    detached) for each permutation, at each of ``num_scale`` scales,
-    scale-major: (num_scale · len(perms), B, H, W, C)."""
-    mixes = torch.stack([x + strength * x[p].detach() for p in perms])
+def admix(x, perms, strength: float, num_scale: int, partners=None):
+    """Admix's apply step: ``x + strength·partners[perm]`` (the partner
+    image detached; ``partners`` the whole batch, ``x`` by default) for each
+    permutation, at each of ``num_scale`` scales, scale-major:
+    (num_scale · len(perms), B, H, W, C)."""
+    partners = x if partners is None else partners
+    mixes = torch.stack([x + strength * partners[p].detach() for p in perms])
     return scale_copies(mixes, num_scale).reshape((-1,) + x.shape)
 
 
@@ -63,9 +65,9 @@ class Admix(MIFGSM):
         return self.num_scale * self.num_admix
 
     def transform(self, x, state: AttackState, gen):
-        perms = [draw(gen, torch.randperm, x.shape[0], device=x.device)
+        perms = [self.draw_rows(gen, torch.randperm, x.shape[0], device=x.device)
                  for _ in range(self.num_admix)]
-        return admix(x, perms, self.admix_strength, self.num_scale)
+        return admix(x, perms, self.admix_strength, self.num_scale, self.whole_batch(x))
 
 
 class USMM(MIFGSM):
@@ -92,7 +94,7 @@ class USMM(MIFGSM):
     def mix_perms(self, gen, B, state):
         """(num_mix, num_scale, B): a fresh shuffled-batch permutation for
         every (mix, scale) copy."""
-        return torch.stack([draw(gen, torch.randperm, B, device=state.delta.device)
+        return torch.stack([self.draw_rows(gen, torch.randperm, B, device=state.delta.device)
                             for _ in range(self.num_mix * self.num_scale)]
                            ).reshape(self.num_mix, self.num_scale, B)
 
@@ -103,7 +105,7 @@ class USMM(MIFGSM):
             [self.scale_low + (self.scale_high - self.scale_low) * i / (self.num_scale - 1)
              for i in range(self.num_scale)], dtype=x.dtype, device=x.device)
         perms = self.mix_perms(gen, x.shape[0], state)
-        masks = (1 - self.mix_range) + 2 * self.mix_range * xadv[perms]
+        masks = (1 - self.mix_range) + 2 * self.mix_range * self.whole_batch(xadv)[perms]
         pts = scales.reshape(1, -1, 1, 1, 1, 1) * (xadv[None, None] * masks)
         pts = torch.clamp(pts.reshape((-1,) + x.shape), 0.0, 1.0).requires_grad_(True)
         logits = self.get_logits(pts)

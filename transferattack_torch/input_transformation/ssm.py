@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import AttackState, draw, mean_over_draws
+from ..attack import AttackState, mean_over_draws
 from ..gradient.mifgsm import MIFGSM
 from ..ops.dct import dct_2d, idct_2d
 
@@ -32,8 +32,8 @@ class SSM(MIFGSM):
 
     def spectral_draws(self, gen, x, step):
         """(gaussian noise of std eps, U(1 − ρ, 1 + ρ) DCT mask) of one sample."""
-        gauss = draw(gen, torch.randn, x.shape, device=x.device) * self.eps
-        mask = (draw(gen, torch.rand, x.shape, device=x.device) * (2 * self.rho)
+        gauss = self.draw_rows(gen, torch.randn, x.shape, device=x.device) * self.eps
+        mask = (self.draw_rows(gen, torch.rand, x.shape, device=x.device) * (2 * self.rho)
                 + (1 - self.rho))
         return gauss, mask
 

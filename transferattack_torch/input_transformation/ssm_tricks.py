@@ -99,11 +99,11 @@ class ODI(SSM):
         diffuse draws, and the background (:func:`render_odi`)."""
         dev = self.device
 
-        def u(*shape):
-            return draw(gen, torch.rand, shape, device=dev)
+        def u(*shape):  # each the batch's rows on axis 0
+            return self.draw_rows(gen, torch.rand, shape, device=dev)
 
         def deg():
-            return draw(gen, torch.randint, -35, 36, (B,), device=dev)
+            return self.draw_rows(gen, torch.randint, -35, 36, (B,), device=dev)
 
         return {"obj": int(draw(gen, torch.randint, 0, len(self._meshes), ())),
                 "solid": u(B, 3), "elev": deg(), "azim": deg(), "dist": u(B),

@@ -17,7 +17,11 @@ in the working directory.  Everything runs on the CUDA card unless
 
 Under ``torchrun`` each rank takes a card (``cuda:{LOCAL_RANK}``; gloo
 ranks with ``--device cpu``): an attack's batch is split over the ranks
-(``parallel.ShardedAttackRunner``; ``--no_mesh`` keeps it whole), the
+(``parallel.ShardedAttackRunner``, each rank's rows of the one-process
+draws, partners and batch statistics), but for the twelve keys that prepare
+a batch in a ``__call__`` of their own (``Attack.host_state``: aa, lpm,
+rfcoa, diffattack, aim and the TTP family), which run whole on every rank;
+``--no_mesh`` keeps every batch whole.  The
 ensemble members go on ranks of their own with ``--model_axis``, the eval
 scores each rank's rows, and rank 0 writes the outputs.
 ``--checkpoint_every N`` saves the attack state every N iterations, so that
@@ -42,7 +46,8 @@ from .config import build_attack
 from .models import (fallback_weights_used, make_model, resolve_device,
                      round_variables_to_bf16)
 from .parallel import (ShardedAttackRunner, data_model_groups, init_from_env,
-                       mesh_ensemble_surrogate, pad_to_multiple, rank_of, world_size)
+                       mesh_ensemble_surrogate, pad_to_multiple, rank_of, shards,
+                       world_size)
 from .utils import cnn_model_paper, generation_target_classes, vit_model_paper
 from .utils.data import AdvDataset, save_images
 
@@ -86,7 +91,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--targeted", action="store_true")
     p.add_argument("--GPU_ID", default="0", type=str)
     p.add_argument("--no_mesh", action="store_true",
-                   help="under torchrun, run each batch whole on every rank")
+                   help="under torchrun, run each batch whole on every rank "
+                        "(else every key but the host-state ones splits it)")
     p.add_argument("--model_axis", default=0, type=int,
                    help="place ensemble members on ranks of their own, this many "
                         "on the model axis (the ranks as a (data, model) grid; the "
@@ -140,7 +146,8 @@ def run_attack(args, device: torch.device) -> None:
     resumable = (args.checkpoint_every > 0
                  and getattr(attacker, "supports_resume", lambda: False)())
     runner = attacker
-    if dist.is_initialized() and world_size() > 1 and not args.no_mesh and not resumable:
+    if (dist.is_initialized() and world_size() > 1 and not args.no_mesh and not resumable
+            and shards(attacker)):
         group = None
         if args.model_axis > 0 and getattr(attacker.model, "members", ()):
             groups = data_model_groups(args.model_axis)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import AttackState, draw
+from ..attack import AttackState
 from ..gradient.mifgsm import MIFGSM, NIFGSM
 from ..input_transformation.dim import DIM
 from ..input_transformation.sim import SIM, Admix
@@ -55,12 +55,12 @@ class DHFMixin:
 
     def mixup_uniform(self, gen, shape, dtype, step, i):
         """Elementwise U(0, mixup_weight_max) mix weight of module ``i``."""
-        return (draw(gen, torch.rand, shape, device=self.device)
+        return (self.draw_copy_rows(gen, torch.rand, shape, device=self.device)
                 * self.mixup_weight_max).to(dtype)
 
     def keep_uniform(self, gen, shape, step, i):
         """Elementwise U(0, 1), compared with random_keep_prob."""
-        return draw(gen, torch.rand, shape, device=self.device)
+        return self.draw_copy_rows(gen, torch.rand, shape, device=self.device)
 
     def _make_taps(self, mix_feats, indicator, gen, step):
         taps = {}

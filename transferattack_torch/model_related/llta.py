@@ -73,14 +73,15 @@ class LLTA(MIFGSM):
 
     def gamma_noise(self, gen, shape, rnd):
         """Round ``rnd``'s gaussian γ perturbations, (nsample, B, G)."""
-        return draw(gen, torch.randn, shape, device=self.device) * self.sigma
+        return (self.draw_rows(gen, torch.randn, shape, batch_axis=1, device=self.device)
+                * self.sigma)
 
     def model_task_draws(self, gen, size, shape, which):
         """The γ jitter of a task set (``which``: 'spt' or 'qry'): U(0, 1)
         of (size, B, G) for the offset, of (size, B, 1) against prob_m."""
         B, G = shape
-        return (draw(gen, torch.rand, (size, B, G), device=self.device),
-                draw(gen, torch.rand, (size, B, 1), device=self.device))
+        return (self.draw_rows(gen, torch.rand, (size, B, G), batch_axis=1, device=self.device),
+                self.draw_rows(gen, torch.rand, (size, B, 1), batch_axis=1, device=self.device))
 
     def data_task_draws(self, gen, x, size, which):
         """Per task: DIM's draws at rate 1/0.875, always applied, and a
@@ -91,8 +92,10 @@ class LLTA(MIFGSM):
     def task_perm(self, gen, B, task):
         """Each image's qry_size support entries, drawn without
         replacement: (B, qry_size)."""
-        return torch.stack([draw(gen, torch.randperm, self.spt_size, device=self.device)
-                            [: self.qry_size] for _ in range(B)])
+        # one draw an image of the whole batch, this rank's rows kept
+        return self.rows_of(torch.stack([
+            draw(gen, torch.randperm, self.spt_size, device=self.device)[: self.qry_size]
+            for _ in range(self.batch_rows(B))]))
 
     # -- the search and the tasks ----------------------------------------
 
@@ -207,7 +210,7 @@ class LL2S(MIFGSM):
 
     def robust_init(self, gen, shape):
         """The dynamic robust tokens' start, N(0, 1)·10 of (B, R, D)."""
-        return draw(gen, torch.randn, shape, device=self.device) * 10.0
+        return self.draw_rows(gen, torch.randn, shape, device=self.device) * 10.0
 
     def rest_ids(self, gen, n_tokens: int, n_rest: int):
         """Each head's REST token ids, ``n_rest`` of 1..N−1: (h, n_rest)."""
@@ -227,14 +230,15 @@ class LL2S(MIFGSM):
         dropout mask of the hidden activation's shape; REST's None."""
         dev = self.device
         if op == 1:
-            return draw(gen, torch.rand, attn_shape, device=dev) > self.SPARSE_P
+            return self.draw_rows(gen, torch.rand, attn_shape, device=dev) > self.SPARSE_P
         if op == 2:
             idx = draw(gen, torch.randperm, self.num_heads, device=dev)[
                 :int(self.num_heads * self.SHUFFLE_RATIO)]
             return idx, bool(draw(gen, torch.rand, (), device=dev) < self.SHUFFLE_PROB)
         if op == 3:
             n_exp = int(draw(gen, torch.randint, 2, self.MOE_N + 1, (), device=dev))
-            keep = draw(gen, torch.rand, (n_exp,) + tuple(hid_shape), device=dev) > self.MOE_PROB
+            keep = self.draw_rows(gen, torch.rand, (n_exp,) + tuple(hid_shape), batch_axis=1,
+                                  device=dev) > self.MOE_PROB
             return keep.sum(0).float() / n_exp
         return None
 
@@ -308,15 +312,15 @@ class LL2S(MIFGSM):
                 x + delta, extra_tokens=robust).float()
             loss = self.get_loss(logits[None], y)
             (g,) = torch.autograd.grad(loss / self.num_scale, delta)
-            grad, losses = grad + g, losses + [loss.detach()]
+            grad, losses = grad + g, losses + [loss]
         self.grad_evals += n_assign
 
         # REINFORCE on the operation distribution
         param = aug_param.detach().requires_grad_(True)
         chain = torch.softmax(param, dim=-1)[torch.arange(self.num_layers, device=x.device)[None],
                                              op_ids].prod(dim=1)
-        (g_aug,) = torch.autograd.grad((chain * torch.stack(losses)).sum() / self.num_scale,
-                                       param)
+        (g_aug,) = torch.autograd.grad(
+            (chain * self.whole_loss(torch.stack(losses))).sum() / self.num_scale, param)
         updates = {"aug_param": aug_param + self.ops_lr * g_aug}
         if robust is not None:
             # the robust tokens' step, on the plain forward
@@ -428,7 +432,7 @@ class ATA_ViT(MIFGSM):
         probs = torch.softmax(self.model.apply(inputs).float(), dim=-1)
         p = probs.gather(1, y[:, None])[:, 0]
         p = 1.0 - p if self.targeted else p
-        return torch.mean(-torch.log(1.0 - p + 1e-10))
+        return self.batch_share(-torch.log(1.0 - p + 1e-10))
 
     def run(self, x, y, gen):
         mask = self._build_mask(x, y)

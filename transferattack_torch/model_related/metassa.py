@@ -51,7 +51,7 @@ class MetaSSA(MIFGSM):
 
     def gauss_draw(self, gen, x, step, i, phase):
         """N(0, eps²) exploration noise."""
-        return draw(gen, torch.randn, x.shape, device=x.device) * self.eps
+        return self.draw_rows(gen, torch.randn, x.shape, device=x.device) * self.eps
 
     def _loss_grad(self, point_of, delta, f_lo, f_hi, coeffs, y):
         """Gradient in ``delta`` of the loss at ``point_of(delta)``, the

@@ -128,10 +128,11 @@ class GhostNetwork_MIFGSM(MIFGSM):
         a skip's per-channel scales U(1 ± range), or a 0/1 dropout keep mask
         of an activation's NHWC shape.  The seam a test feeds JAX's draws
         through, by ``step`` and ``name``."""
-        u = draw(gen, torch.rand, shape, device=self.device)
-        if kind == "ghost_range":
+        if kind == "ghost_range":  # a channel's scale, shared by the batch
             r = self.ghost_random_range
-            return u * (2 * r) + (1.0 - r)
+            return draw(gen, torch.rand, shape, device=self.device) * (2 * r) + (1.0 - r)
+        # a mask's rows are those of the flattened (copies · batch) axis
+        u = self.draw_copy_rows(gen, torch.rand, shape, device=self.device)
         return (u < self.ghost_keep_prob).float()
 
     def get_grad(self, x, y, state: AttackState, gen):

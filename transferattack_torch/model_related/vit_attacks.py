@@ -134,8 +134,9 @@ class PNA_PatchOut(MIFGSM):
         delta = state.delta.detach().requires_grad_(True)
         logits = self.model.apply(x + delta * mask).float()
         self.grad_evals += 1
-        # eps inside the sqrt: the L2 norm's gradient at delta = 0 is NaN
-        l2 = torch.sqrt((delta ** 2).sum() + 1e-12)
+        # eps inside the sqrt: the L2 norm's gradient at delta = 0 is NaN;
+        # the norm of the whole batch's delta
+        l2 = torch.sqrt(self.batch_sum(delta ** 2, axis=0) + 1e-12)
         (grad,) = torch.autograd.grad(self.get_loss(logits[None], y) + self.lamb * l2, delta)
         return grad, {}
 
@@ -202,7 +203,7 @@ class FDAP(MIFGSM):
         for f in feats:
             f = f.float()
             r = (f - f.mean(dim=1, keepdim=True)).reshape(f.shape[0], -1).norm(dim=1) + 1e-8
-            loss_div = loss_div + (torch.log(r) ** self.beta).mean()
+            loss_div = loss_div + self.batch_share(torch.log(r) ** self.beta)
         loss = self.get_loss(logits[None], y) - self.gamma * loss_div
         (grad,) = torch.autograd.grad(loss, delta)
         return grad, {}

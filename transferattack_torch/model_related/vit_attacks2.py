@@ -218,7 +218,7 @@ class ATT(MIFGSM):
         keys = ("attn", "qkv", "mlp")
         cots = torch.autograd.grad(self.get_loss(logits[None], y),
                                    [t for k in keys for t in off[k]])
-        cur = {k: torch.stack([c.float().var(unbiased=False) for c in cots[i * D:(i + 1) * D]])
+        cur = {k: torch.stack([self.batch_var(c.float()) for c in cots[i * D:(i + 1) * D]])
                for i, k in enumerate(keys)}
         ref = state.extra["var_ref"]
         var_ref = {k: torch.where(ref[k] < 0, cur[k], ref[k]) for k in keys}

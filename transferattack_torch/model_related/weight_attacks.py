@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attack import Attack, AttackState, draw
+from ..attack import Attack, AttackState
 from ..gradient.mifgsm import MIFGSM
 from ..gradient.pgn import IMAGE_DIMS
 
@@ -31,9 +31,11 @@ def _is_conv_kernel(name: str, w) -> bool:
 def param_grads(atk, params, points, y):
     """Gradient of ``atk``'s loss summed over ``points`` (a list of
     (B, H, W, C) batches, through the surrogate as one batch) in each of
-    ``params``."""
+    ``params``, over the whole batch (on a rank, summed over the ranks:
+    every row reads the weights)."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    logits = atk.model.apply(torch.cat(points), params=p).float()
+    logits = atk.model.apply(torch.cat(points),
+                             params={k: atk.replicated(v) for k, v in p.items()}).float()
     atk.grad_evals += len(points)
     loss = sum(atk.get_loss(part[None], y) for part in logits.chunk(len(points)))
     return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
@@ -126,7 +128,7 @@ class AWT(Attack):
 
     def neighbor_noise(self, gen, x, state, idx):
         """Neighbour ``idx``'s draw, uniform in the zeta-ball."""
-        u = draw(gen, torch.rand, x.shape, device=x.device)
+        u = self.draw_rows(gen, torch.rand, x.shape, device=x.device)
         return u * (2 * self.zeta) - self.zeta
 
     def _grads_at(self, params, points, y):
@@ -178,16 +180,16 @@ class FAUG(MIFGSM):
 
     def unit_noise(self, gen, shape, dtype, state):
         """Standard-normal draw, scaled by std1·std(feature) afterwards."""
-        return draw(gen, torch.randn, shape, device=self.device).to(dtype)
+        return self.draw_rows(gen, torch.randn, shape, device=self.device).to(dtype)
 
     def get_grad(self, x, y, state: AttackState, gen):
         def tap(feat):
             if self.noise_type == "normal":
-                std = self.std1 * feat.float().std(correction=0)
+                std = self.std1 * self.batch_var(feat.detach().float()).sqrt()
                 noise = self.mean1 + std * self.unit_noise(gen, feat.shape, torch.float32,
                                                            state)
             else:
-                u = draw(gen, torch.rand, feat.shape, device=self.device)
+                u = self.draw_rows(gen, torch.rand, feat.shape, device=self.device)
                 noise = self.lower1 + u * (self.upper1 - self.lower1)
             return feat + noise.detach()
 

@@ -5,21 +5,36 @@ JAX runs one controller over a device mesh: the sharded attack is the same
 global program, so its delta is the one-device delta.  Here there is one
 process a card (``torchrun``), or N CPU processes over gloo for the tests
 and the dry run, and each rank runs the attack eagerly on its own rows of
-the batch.  A rank sees only those rows, so three things of the global
-program are restored by hand:
+the batch.  A rank sees only those rows, so what of the global program
+crosses rows is restored by hand, through :class:`DataSplit` and the seams
+of :class:`~transferattack_torch.attack.Attack` that read it:
 
-(a) the loss is a mean over the batch: each rank scales its loss by
-    ``n_local / n_global`` (``DataSplit.loss_scale``, read by
-    ``Attack.get_loss``), so that its input gradient is the one-process one;
+(a) the loss is a mean over the batch: each rank's loss is its real rows'
+    sum over ``n_global`` (``DataSplit.share``, read by ``Attack.get_loss``
+    through ``Attack.batch_share``), so that its input gradient is the
+    one-process one, and the padding's is 0; a tensor every row reads
+    (DeCowA's warp map, AWT's weight step) sums its gradient over the ranks
+    (``Attack.replicated``: ``copy_to_group``);
 (b) a reduction over the whole batch (``global_l1_normalize``: DTA,
-    PC-I-FGSM) sums over the real rows of every rank (``DataSplit.sum_rows``);
-(c) a key whose draws are shaped by the batch, or that takes partners from
-    it (Admix's ``randperm(B)``, per-image draws from one generator), cannot
-    give a rank the draws its rows see in one process, so it runs whole on
-    every rank through its own entry point, as JAX's host-state keys do.
+    PC-I-FGSM, CWA) sums over the real rows of every rank
+    (``DataSplit.sum_real``);
+1.  a draw shaped by the batch is drawn at the one-process shape, from the
+    same generator in the same order on every rank, and this rank's rows
+    taken (``Attack.draw_rows``, ``DataSplit.rows``): never at the padded
+    shape, whose draw would shift every later draw of the call;
+2.  partners taken from the batch (Admix's ``randperm(B)``) index the whole
+    batch's real rows, all-gathered (``Attack.whole_batch``,
+    ``DataSplit.whole``), detached or with a backward that sums every
+    rank's share and hands each rank its own rows;
+3.  a statistic over the batch (POTRIP's clamped triplet mean, TRAP's norms
+    over the batch, L2T's REINFORCE losses) is summed over every rank's real
+    rows (``Attack.batch_mean``, ``batch_sum``, ``whole_loss``;
+    ``DataSplit.mean_rows``, ``sum_real``, ``reduce``).
 
-Which keys shard is :data:`SHARDED_KEYS`; every other key goes whole.  Each
-key there is held against one process by ``tests/test_torch_port_parallel.py``.
+So every key splits but those with host-side preparation in a ``__call__``
+of their own (``Attack.host_state``, JAX's flag), which run whole on every
+rank through that entry point.  Each split key is held against one process
+by ``tests/test_torch_port_parallel.py`` and ``test_torch_port_parallel2.py``.
 
 The augmented copies of an attack can be split over a group too
 (``Attack.copies_group``, JAX's ``copies_sharding``), and ensemble members
@@ -32,9 +47,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import functools
 import os
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -48,21 +62,6 @@ from .ensemble_mesh import (  # noqa: F401
     mesh_ensemble_surrogate,
     stack_param_sets,
 )
-
-# the registry keys whose delta, split over ranks by ShardedAttackRunner, is
-# the one-process delta (rules (a) and (b) of the module docstring): each
-# draws nothing shaped by the batch and couples no images.  Every other key
-# runs whole on each rank: the neighbourhood samplers (VMI, GRA, PGN, ...)
-# and Admix, DeCowA, SSM, ... draw per image (rule (c)); POTRIP clamps a
-# batch mean, PAM reads image 0's label; the rest were not held against one
-# process (the feature, surgery, ViT and ensemble keys)
-SHARDED_KEYS = frozenset({
-    "fgsm", "ifgsm", "mifgsm", "nifgsm", "emifgsm", "pifgsm", "aifgtm", "ifgssm",
-    "adamsi_fgm", "gnp", "mig", "dta", "iefgsm", "pcifgsm", "gifgsm", "anda",
-    "dim", "dem", "tim", "sim", "bsr", "ops", "atta", "fap",
-    "logit", "logit_margin", "fuzziness_tuned", "ir", "p2fa", "taig",
-    "dra", "dsm", "mta", "ma", "qaa", "lgv", "mba", "sasd_ws",
-})
 
 DIST_TIMEOUT = datetime.timedelta(seconds=60)
 
@@ -110,25 +109,88 @@ def pad_to_multiple(x, multiple: int):
 @dataclasses.dataclass(frozen=True)
 class DataSplit:
     """A rank's part of a batch split over ``group``: ``n_local`` rows
-    (padding included), of which the first ``n_real`` are rows of the
-    batch, which has ``n_global`` rows over the group."""
+    (padding included) from row ``start`` of the padded batch, of which the
+    first ``n_real`` are rows of the batch, which has ``n_global`` rows over
+    the group."""
 
     group: object
     n_local: int
     n_real: int
     n_global: int
+    start: int = 0
 
-    @property
-    def loss_scale(self) -> float:
-        """What turns this rank's batch mean into its share of the whole
-        batch's mean (rule (a))."""
-        return self.n_local / self.n_global
+    @classmethod
+    def of(cls, n: int, group=None) -> "DataSplit":
+        """This rank's part of a batch of ``n`` rows padded to a multiple of
+        the group's size (:func:`pad_to_multiple`), in contiguous rows."""
+        world, rank = world_size(group), rank_of(group)
+        per = -(-n // world)
+        return cls(group, per, min(max(n - rank * per, 0), per), n, rank * per)
 
-    def sum_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the real rows of every rank (rule (b))."""
-        total = t[:self.n_real].sum()
-        dist.all_reduce(total, group=self.group)
-        return total
+    def share(self, values: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """This rank's share of the whole batch's mean of ``values``, whose
+        ``axis`` holds this rank's rows (rule (a)): the mean over its real
+        rows scaled by ``n_real / n_global``, so that its gradient is the
+        one-process one on the real rows and 0 on the padding, which then
+        reaches nothing that every row shares.  Without padding it is the
+        rows' mean times ``n_local / n_global``: at a world of 1, the mean."""
+        real = values.narrow(axis, 0, self.n_real)
+        if self.n_real == 0:  # padding only: 0, and no gradient
+            return real.sum()
+        return real.mean() * (self.n_real / self.n_global)
+
+    def global_size(self, size, axis: int = 0):
+        """``size`` (a shape, or ``randperm``'s length) with this rank's
+        ``n_local`` rows on ``axis`` made the whole batch's ``n_global``
+        (rule 1); raises if ``size`` does not hold this rank's rows there."""
+        shape = [size] if isinstance(size, int) else list(size)
+        if shape[axis] != self.n_local:
+            raise ValueError(f"a draw of shape {tuple(shape)} has no batch of "
+                             f"{self.n_local} rows on axis {axis}")
+        shape[axis] = self.n_global
+        return shape[0] if isinstance(size, int) else tuple(shape)
+
+    def rows(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's rows on ``axis`` of ``t``, which holds the whole
+        batch's ``n_global`` there, padded as :func:`pad_to_multiple` pads
+        the batch (rule 1)."""
+        t = t.movedim(axis, 0)
+        short = self.start + self.n_local - t.shape[0]
+        if short > 0:
+            t = torch.cat([t, t[-1:].expand((short,) + tuple(t.shape[1:]))])
+        return t[self.start:self.start + self.n_local].movedim(0, axis)
+
+    def whole(self, t: torch.Tensor, grad: bool = False, axis: int = 0) -> torch.Tensor:
+        """The whole batch's ``n_global`` real rows of ``t`` (rows on
+        ``axis``), gathered from every rank (rule 2).  With ``grad``, the
+        gradient each rank's loss gives the gathered rows is summed over the
+        group and handed back to the rank that holds them; else they are
+        detached."""
+        t = t.movedim(axis, 0)
+        if grad:  # the gather's backward takes this rank's slice of the sum
+            full = copy_to_group(gather_from_group(t, self.group), self.group)
+        else:
+            t = t.detach().contiguous()
+            parts = [torch.empty_like(t) for _ in range(world_size(self.group))]
+            dist.all_gather(parts, t, group=self.group)
+            full = torch.cat(parts)
+        return full[:self.n_global].movedim(0, axis)
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group, the same on every rank; the backward
+        hands each rank the gradient of the sum (``reduce_from_group``)."""
+        return reduce_from_group(t, self.group)
+
+    def sum_real(self, values: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """The sum of ``values`` over every rank's real rows (``axis``): a
+        global L1 norm (rule (b)), a norm over the batch (rule 3)."""
+        return self.reduce(values.narrow(axis, 0, self.n_real).sum())
+
+    def mean_rows(self, values: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """The whole batch's mean of ``values`` (``axis``: this rank's
+        rows), the same on every rank (rule 3): :meth:`share` summed over
+        the group."""
+        return self.reduce(self.share(values, axis))
 
 
 # ----------------------------------------------------------------------
@@ -215,17 +277,11 @@ def split_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 # ----------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _sharded_classes() -> Tuple[type, ...]:
-    from .. import load_attack_class
-
-    return tuple({load_attack_class(k) for k in SHARDED_KEYS})
-
-
 def shards(attack) -> bool:
     """Whether :class:`ShardedAttackRunner` splits ``attack``'s batch over
-    ranks: its class is one of :data:`SHARDED_KEYS`' (not a subclass)."""
-    return type(attack) in _sharded_classes()
+    ranks: every key but those that prepare a batch on the host in a
+    ``__call__`` of their own (``host_state``, JAX's flag)."""
+    return not attack.host_state
 
 
 class ShardedAttackRunner:
@@ -238,8 +294,9 @@ class ShardedAttackRunner:
     :class:`DataSplit`; the deltas are all-gathered and the padding sliced
     off, so every rank returns the whole batch's delta.  Keys that do not
     shard (:func:`shards`), and every key without a process group, run
-    whole through the attack's own entry point.  At a world of 1 the delta
-    is the attack's own, bit for bit.
+    whole through the attack's own entry point.  A collective that fails
+    raises: a split key never falls back to the whole batch.  At a world of
+    1 the delta is the attack's own, bit for bit.
     """
 
     def __init__(self, attack, group=None):
@@ -258,12 +315,12 @@ class ShardedAttackRunner:
         y = atk.prepare_labels(y)
         if generator is None:
             generator = torch.Generator(device=atk.device).manual_seed(atk.seed + idx)
-        world, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        world = dist.get_world_size(self.group)
         xp, n = pad_to_multiple(x, world)
         yp, _ = pad_to_multiple(y, world)
-        per = xp.shape[0] // world
-        rows = slice(rank * per, (rank + 1) * per)
-        atk.data_split = DataSplit(self.group, per, min(max(n - rank * per, 0), per), n)
+        split = DataSplit.of(n, self.group)
+        rows = slice(split.start, split.start + split.n_local)
+        atk.data_split = split
         try:
             local = atk.run(xp[rows].contiguous(), yp[rows], generator)
         finally:

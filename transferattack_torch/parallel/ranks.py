@@ -102,10 +102,55 @@ def spawn(target: Callable, world: int, args: Sequence = (), timeout: float = 60
 # ----------------------------------------------------------------------
 
 
+# narrow models at 32² for the keys that need a Bottleneck ResNet or a ViT:
+# name -> (module path, class name, keywords)
+NARROW_MODELS = {
+    "ranks_bottleneck": ("..models.resnet", "ResNet",
+                         {"stage_sizes": (2, 1, 1, 1), "block_cls": "Bottleneck",
+                          "num_classes": 10}),
+    "ranks_vit": ("..models.vit", "VisionTransformer",
+                  {"patch_size": 16, "dim": 64, "depth": 4, "num_heads": 2,
+                   "num_classes": 10}),
+}
+
+
+def _narrow_factory(path: str, cls: str, kwargs: dict):
+    import importlib
+
+    mod = importlib.import_module(path, __package__)
+    kw = {k: getattr(mod, v) if k == "block_cls" else v for k, v in kwargs.items()}
+    return lambda **extra: getattr(mod, cls)(**kw, **extra)
+
+
+@contextlib.contextmanager
+def narrow_models():
+    """:data:`NARROW_MODELS` in the port's model registry (at 32², sized
+    where the class takes ``img_size``) inside the block."""
+    from ..models import _MODEL_REGISTRY, IMAGENET_MEAN, IMAGENET_STD
+
+    added = [n for n in NARROW_MODELS if n not in _MODEL_REGISTRY]
+    for name in added:
+        path, cls, kw = NARROW_MODELS[name]
+        _MODEL_REGISTRY[name] = (_narrow_factory(path, cls, kw), 32, IMAGENET_MEAN,
+                                 IMAGENET_STD, cls == "VisionTransformer")
+    try:
+        yield
+    finally:
+        for name in added:
+            _MODEL_REGISTRY.pop(name, None)
+
+
 def build_attack(key: str, model="toy_cnn", flat=None, input_size: Optional[int] = None,
                  **kwargs):
     """A registry attack on the CPU; ``flat`` (JAX's flat variables) loaded
-    into its model through the weights bridge."""
+    into its model through the weights bridge.  ``model`` may name one of
+    :data:`NARROW_MODELS`."""
+    narrow = isinstance(model, str) and model in NARROW_MODELS
+    with narrow_models() if narrow else contextlib.nullcontext():
+        return _build_attack(key, model, flat, input_size, **kwargs)
+
+
+def _build_attack(key: str, model, flat, input_size: Optional[int], **kwargs):
     from .. import load_attack_class
     from ..models import make_model
 
@@ -154,10 +199,7 @@ def check_runner(case) -> np.ndarray:
         groups = data_model_groups(case["copies_axis"])
         atk.copies_group = groups.model
         group = groups.data
-    runner = ShardedAttackRunner(atk, group)
-    if "shard" in case:  # a key held to what it would give split or whole
-        runner.shard = case["shard"]
-    return runner(case["x"], case["y"], idx=case.get("idx", 0)).numpy()
+    return ShardedAttackRunner(atk, group)(case["x"], case["y"], idx=case.get("idx", 0)).numpy()
 
 
 def check_input_grad(case):
@@ -167,19 +209,54 @@ def check_input_grad(case):
     from . import DataSplit, pad_to_multiple
 
     atk = build_attack(case["key"], **case.get("build", {}))
-    world, rank = dist.get_world_size(), dist.get_rank()
     x = torch.as_tensor(case["x"])
     y = atk.prepare_labels(case["y"])
-    xp, n = pad_to_multiple(x, world)
-    yp, _ = pad_to_multiple(y, world)
-    per = xp.shape[0] // world
-    rows = slice(rank * per, (rank + 1) * per)
-    n_real = min(max(n - rank * per, 0), per)
-    atk.data_split = DataSplit(None, per, n_real, n)
+    xp, n = pad_to_multiple(x, dist.get_world_size())
+    yp, _ = pad_to_multiple(y, dist.get_world_size())
+    split = atk.data_split = DataSplit.of(n)
+    rows = slice(split.start, split.start + split.n_local)
     gen = torch.Generator().manual_seed(0)
     state = atk.init_state(xp[rows], yp[rows], gen)
     g = atk.input_grad(xp[rows], yp[rows], state, gen)
-    return rank * per, g[:n_real].numpy()
+    return split.start, g[:split.n_real].numpy()
+
+
+def check_draw_rows(case):
+    """Rule 1 at ``n`` rows over the world: this rank's rows of a U(0, 1)
+    draw of ``shape`` (its batch on ``axis``), of a permutation, and the
+    draw after them, each from one seeded generator.  Returns (rows,
+    permutation rows, next draw, real rows)."""
+    from ..attack import draw, draw_rows
+    from . import DataSplit
+
+    split = DataSplit.of(case["n"])
+    shape = list(case["shape"])
+    shape[case["axis"]] = split.n_local
+    gen = torch.Generator().manual_seed(case.get("seed", 0))
+    rows = draw_rows(split, gen, torch.rand, tuple(shape), batch_axis=case["axis"])
+    perm = draw_rows(split, gen, torch.randperm, split.n_local)
+    after = draw(gen, torch.rand, (4,))
+    return rows.numpy(), perm.numpy(), after.numpy(), split.n_real
+
+
+def check_partners(case):
+    """Rule 2 with a gradient: ``Σ_i w_i ⟨x_i, x_perm(i)⟩`` over this rank's
+    rows of the one-process permutation, the partners gathered with
+    ``DataSplit.whole(grad=True)``; returns the gradient of this rank's real
+    rows and the loss summed over the ranks."""
+    from ..attack import draw_rows
+    from . import DataSplit, pad_to_multiple
+
+    x, n = pad_to_multiple(torch.as_tensor(case["x"]), dist.get_world_size())
+    split = DataSplit.of(n)
+    xl = x[split.start:split.start + split.n_local].clone().requires_grad_(True)
+    perm = draw_rows(split, torch.Generator().manual_seed(case.get("seed", 0)),
+                     torch.randperm, split.n_local)
+    w = split.rows(torch.arange(1.0, n + 1, dtype=x.dtype))
+    rows = (w[:, None] * xl * split.whole(xl, grad=True)[perm]).sum(1)
+    loss = split.sum_real(rows)
+    (g,) = torch.autograd.grad(loss, xl)
+    return g[:split.n_real].numpy(), loss.item()
 
 
 def ensemble_outputs(surrogate, x, y):
@@ -234,7 +311,8 @@ def check_stacked(case):
 
 
 CHECKS = {"runner": check_runner, "input_grad": check_input_grad,
-          "ensemble": check_ensemble, "stacked": check_stacked}
+          "ensemble": check_ensemble, "stacked": check_stacked,
+          "draw_rows": check_draw_rows, "partners": check_partners}
 
 
 def run_cases(cases: Dict[str, dict]) -> Dict[str, object]:
